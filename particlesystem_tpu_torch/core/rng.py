@@ -1,0 +1,149 @@
+"""Deterministic counter-based randomness, bit for bit JAX's threefry.
+
+Counterpart of ``particlesystem_tpu/core/rng.py``.  Every draw is threefry2x32
+keyed on ``(seed, frame, purpose)`` and, per particle, on its persistent
+tag, so trajectories are reproducible and independent of slot placement.
+This module reproduces ``jax.random`` as jax 0.9 computes it with
+``jax_threefry_partitionable`` on (its default):
+
+* ``key(seed)``        — the raw key ``(seed >> 32, seed & 0xFFFFFFFF)``;
+* ``fold_in(k, d)``    — ``threefry2x32(k, (0, d))``;
+* ``split(k, num)``    — key ``i`` is ``threefry2x32(k, (0, i))``;
+* random bits          — element ``i`` of a draw is ``b1 ^ b2`` of
+  ``threefry2x32(k, (i >> 32, i & 0xFFFFFFFF))``;
+* ``uniform``          — ``bitcast_f32((bits >> 9) | 0x3F800000) - 1``.
+
+uint32 values live in int64 tensors (or Python ints) and every operation
+masks back to 32 bits; no product exceeds 2^63.  Keys are ``(k1, k2)``
+pairs of Python ints (frame-level keys, computed on the host) or int64
+tensors (per-tag keys, computed on the device).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# Purpose tags folded into the per-frame key so independent random fields
+# never alias.
+UVEC = 0
+FERT = 1
+EMIT = 2
+FILL = 3
+
+M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & M32
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds) of the counter pair ``(x1, x2)``
+    under key ``(k1, k2)``; operands broadcast, uint32 values in Python ints
+    or int64 tensors."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & M32
+    x2 = (x2 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & M32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & M32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & M32
+    return x1, x2
+
+
+def key(seed: int):
+    return ((seed >> 32) & M32, seed & M32)
+
+
+def fold_in(k, data):
+    """``jax.random.fold_in``; ``data`` a Python int or an int64 tensor of
+    uint32 values (one derived key per element)."""
+    return threefry2x32(k[0], k[1], 0, data & M32)
+
+
+def split(k, num: int):
+    """``jax.random.split`` of a host key into ``num`` host keys."""
+    return [threefry2x32(k[0], k[1], 0, i) for i in range(num)]
+
+
+def frame_key(seed: int, frame: int, purpose: int):
+    return fold_in(fold_in(key(seed), purpose), frame)
+
+
+def random_bits(k, shape, device) -> torch.Tensor:
+    """32-bit draws of ``shape`` (int64 tensor of uint32 values).  A key of
+    int64 tensors of shape ``(T,)`` gives one draw of ``shape`` per key,
+    stacked to ``(T, *shape)``."""
+    count = torch.arange(math.prod(shape), dtype=torch.int64,
+                         device=device).reshape(shape)
+    k1, k2 = k
+    if isinstance(k1, torch.Tensor):
+        expand = (-1,) + (1,) * len(shape)
+        k1, k2 = k1.reshape(expand), k2.reshape(expand)
+    b1, b2 = threefry2x32(k1, k2, count >> 32, count & M32)
+    return b1 ^ b2
+
+
+def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 draws to float32 uniforms in [0, 1): mantissa fill under a
+    unit exponent, minus one (``jax.random.uniform``)."""
+    fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return fb.view(torch.float32) - 1.0
+
+
+def uniform01(k, shape, device) -> torch.Tensor:
+    return bits_to_unit(random_bits(k, shape, device))
+
+
+def uniform(k, shape, lo, hi, device) -> torch.Tensor:
+    """``min + u*(max-min)`` with ``u ~ U[0,1)`` — get_random_number
+    (``app.cu:295-299``)."""
+    return lo + uniform01(k, shape, device) * (hi - lo)
+
+
+def tag_mix(tag: torch.Tensor, frame: int) -> torch.Tensor:
+    """Child tag from (parent tag, frame): ``tag*2654435761 +
+    frame*2246822519 + 977`` mod 2^32 (Knuth multiplicative mixing).  The
+    tag product is split at 16 bits of the multiplier so every int64
+    product stays below 2^48."""
+    m = 2654435761
+    t = tag & M32
+    prod = ((((t * (m >> 16)) & 0xFFFF) << 16) + t * (m & 0xFFFF)) & M32
+    return (prod + ((frame * 2246822519 + 977) & M32)) & M32
+
+
+def _per_tag_u01(k, tags: torch.Tensor, n_draws: int) -> torch.Tensor:
+    """(len(tags), n_draws) uniforms, each row keyed by ``fold_in(k, tag)``."""
+    return uniform01(fold_in(k, tags), (n_draws,), tags.device)
+
+
+def per_tag_uniform(k, tags: torch.Tensor, lo, hi) -> torch.Tensor:
+    u = _per_tag_u01(k, tags, 1)[:, 0]
+    return lo + u * (hi - lo)
+
+
+def per_tag_unit_vectors(k, tags: torch.Tensor) -> torch.Tensor:
+    """Per-tag random unit vectors (integer-lattice construction,
+    ``app.cu:301-316``)."""
+    return _lattice_unit(_per_tag_u01(k, tags, 3))
+
+
+def _lattice_unit(u: torch.Tensor) -> torch.Tensor:
+    """Three ints ``floor(u*100) - 50`` in [-50, 49], normalized; the
+    all-zero draw (the reference divides by zero) falls back to +x."""
+    vec = (torch.floor(u * 100.0).to(torch.int32) - 50).to(torch.float32)
+    # the square root is taken in float64 and rounded once to float32: that
+    # is the correctly rounded float32 root on every device (torch's CPU
+    # float32 sqrt can be one ulp off, which would flip the direction bits)
+    sq = torch.sum(vec * vec, dim=1, keepdim=True)
+    mag = torch.sqrt(sq.to(torch.float64)).to(torch.float32)
+    safe = mag > 0
+    vec = torch.where(safe, vec / torch.where(safe, mag, 1.0), 0.0)
+    plus_x = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32,
+                          device=u.device)
+    return torch.where(safe, vec, plus_x)

@@ -1,0 +1,375 @@
+"""Cluster-pair neighbor pass: sorted particle blocks against listed chunks
+of cell-sorted neighbor columns.
+
+Counterpart of ``particlesystem_tpu/ops/neighbor_blocks.py``; the
+semantics are the same, the TPU layout workarounds are gone:
+
+* particles are sorted by cell id (dead last); a *block* is ``B``
+  consecutive sorted rows, so work scales with live particles, not cells;
+* :func:`prepare` lists, per block, up to ``C_MAX`` 128-aligned chunks of at
+  most ``CH`` sorted columns covering the block's 27-cell stencil: cells with
+  consecutive i2 are adjacent in sorted order, so each (i1 row, i3 plane)
+  offset of the stencil is one contiguous range of sorted rows;
+* the kernel (``csrc/neighbor_blocks.cu``, or :func:`cluster_pair_plain`
+  for CPU tensors) walks each block's chunks and applies the per-pair tests:
+  cell-delta stencil ``cd2 <= 3.5`` (for integer deltas that IS the 3x3x3
+  cube, ``fill_cells``, ``app.cu:352-409``), gid inequality and the chunk's
+  valid column range; then Plummer gravity (``bodyBodyInteraction``,
+  ``app_common.cu:236-267``) and the collision key max
+  (``bodyBodyCollision``, ``app_common.cu:269-301``, larger key survives).
+
+The snapshot is two tensors: float32 rows (x, y, z, i1, i2, i3, w) and int32
+rows (gid, cgid).  Ids stay integers; they are never bit-cast into floats.
+
+All gating is folded into the snapshot so the kernel's only per-pair tests
+are the stencil, the id inequality and the contact radius:
+
+* rows that are dead, past the per-cell cap, or younger than ``kid_age``
+  (kids neither exert nor receive gravity) get out-of-band cell coordinates
+  that fail the stencil test against every other row.  Values are spaced 2
+  apart within a band; the kid band [-10 - 2^20, -10] and the dead band
+  [-2^22 - 2^20, -2^22] are disjoint; all stay below 2^23 so float32
+  differences are exact integers.  Axes i1/i3 and i2 use the coprime row
+  moduli 2^19 and 2^19-1, so two distinct rows share all three coordinates
+  only if their index difference is a multiple of 2^19*(2^19-1).  The
+  coordinates stay float32: an int32 square of a dead-band delta overflows.
+* the collision age window's upper edge rides the cgid row (ineligible rows
+  carry INT32_MIN and never win the max); the mine-side window is applied
+  after the unsort.
+
+Collision results leave the kernel as one reduction, ``gmax`` = the largest
+order key over colliding neighbors (INT32_MIN if none); ``kill = gmax >
+my_okey`` and ``touch = gmax > INT32_MIN`` are derived per slot.
+
+Capacity escapes are reported, never silent: blocks whose stencil needs
+more than ``c_max`` chunks drop the excess, and the count comes back as
+``n_chunks_dropped`` (surfaced as ``NBodyStats.n_listed_dropped``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..core.config import NBodyConfig
+from .neighbor import IMIN, as_f32, collision_okey
+
+B = 512        # block rows per kernel CTA
+CH = 1024      # columns per listed chunk
+R_MAX = 24     # neighbor-range slots per block (9 are used)
+C_MAX = 48     # chunk slots per block
+PLAIN_PAIRS = 1 << 24  # pair elements per step of the plain version
+_BIG = 1 << 30
+
+
+class Snapshot(NamedTuple):
+    """Cell-sorted neighbor snapshot: ``f`` float32 (7, N) rows x, y, z,
+    i1, i2, i3, w; ``i`` int32 (2, N) rows gid, cgid."""
+
+    f: torch.Tensor
+    i: torch.Tensor
+
+
+def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, tags,
+            c_max: int | None = None, ch: int | None = None,
+            b: int | None = None):
+    """Sort by cell and build the kernel inputs.
+
+    ``tags`` are the persistent particle tags whose :func:`collision_okey`
+    orders kill/survive; pair self-exclusion uses slot ids.  ``c_max``,
+    ``ch`` and ``b`` override the module's chunk budget, chunk width and
+    block rows.
+
+    Returns (snap :class:`Snapshot`, chunks (NB, c_max, 4) int32 — columns
+    (aligned_start, lo, hi, n_active) — order (sorted row -> slot),
+    overflow_s (sorted-side per-cell-cap overflow), max_cell_occupancy,
+    per-cell counts (num_cells + 1,), n_chunks_dropped).
+    """
+    c_max = C_MAX if c_max is None else c_max
+    ch = CH if ch is None else ch
+    b = B if b is None else b
+    g = cfg.grid.grid_dim
+    num_cells = g ** 3
+    row_stride, plane_stride = g, g * g
+    n = cell.shape[0]
+    if n % b:
+        raise ValueError(f"{n} rows is not a multiple of the block size {b}")
+    dev = cell.device
+    f32 = torch.float32
+
+    iot = torch.arange(n, dtype=torch.int64, device=dev)
+    key = torch.where(alive, cell.to(torch.int64), num_cells)
+    # neighbor-side collision window's upper edge (age <= life); the
+    # kid/dead/overflow gates ride the out-of-band coordinates below
+    cg_pre = torch.where(age0 <= as_f32(cfg.particle_life),
+                         collision_okey(tags), IMIN).to(torch.int32)
+
+    skey, order = torch.sort(key, stable=True)
+    spos = pos0[order]
+    sage = age0[order]
+
+    starts = torch.searchsorted(
+        skey, torch.arange(num_cells + 2, dtype=torch.int64, device=dev))
+    counts = starts[1:] - starts[:-1]                # (num_cells + 1,)
+    # in-cell rank: distance to the start of the current equal-key run
+    # (runs ascend, so a running max of boundary positions is the start)
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = skey[1:] != skey[:-1]
+    run_start = torch.cummax(torch.where(first, iot, 0), dim=0).values
+    rank = iot - run_start
+
+    in_grid = skey < num_cells
+    valid_s = in_grid & (rank < cfg.cell_capacity)
+    overflow_s = in_grid & (rank >= cfg.cell_capacity)
+
+    # out-of-band bands for invalid and kid rows (see module docstring)
+    coord_ok = valid_s & (sage >= as_f32(cfg.kid_age))
+    base = torch.where(valid_s, torch.tensor(-10.0, dtype=f32, device=dev),
+                       torch.tensor(-4194304.0, dtype=f32, device=dev))
+    bad_a = base - (2 * (iot % (1 << 19))).to(f32)
+    bad_b = base - (2 * (iot % ((1 << 19) - 1))).to(f32)
+    i3q = skey // plane_stride
+    remq = skey % plane_stride
+    i1s = torch.where(coord_ok, (remq // row_stride).to(f32), bad_a)
+    i2s = torch.where(coord_ok, (remq % row_stride).to(f32), bad_b)
+    i3s = torch.where(coord_ok, i3q.to(f32), bad_a)
+    snap = Snapshot(
+        f=torch.stack([spos[:, 0], spos[:, 1], spos[:, 2], i1s, i2s, i3s,
+                       w0[order]]),
+        i=torch.stack([order.to(torch.int32), cg_pre[order]]))
+
+    # ---- per-block neighbor ranges --------------------------------------
+    # A block's valid sorted cells are the contiguous [cmin, cmax].  For
+    # each of the 9 stencil offsets (d1, d3) the needed cells are the
+    # linear range [cmin-1, cmax+1] + d3*G^2 + d1*G; row-edge spill is
+    # rejected by the per-pair stencil test.  Offsets ascend, so clipping
+    # each range's start past the previous range's end keeps the ranges
+    # disjoint (wide blocks on sparse grids would overlap them and count
+    # neighbors twice) while keeping their union.
+    nb = n // b
+    cmin = torch.where(valid_s, skey, _BIG).view(nb, b).amin(dim=1)
+    cmax = torch.where(valid_s, skey, -_BIG).view(nb, b).amax(dim=1)
+    empty = cmax < cmin
+
+    offs = sorted(o3 * plane_stride + o1 * row_stride
+                  for o3 in (-1, 0, 1) for o1 in (-1, 0, 1))
+    prev_hi = torch.full_like(cmin, -_BIG)
+    lo_cols, hi_cols = [], []
+    for off in offs:                                     # sequential dedup
+        lo_cols.append(torch.maximum(cmin - 1 + off, prev_hi + 1))
+        hi_cols.append(cmax + 1 + off)
+        prev_hi = torch.maximum(prev_hi, hi_cols[-1])
+    pad = [torch.zeros_like(cmin)] * (R_MAX - len(offs))
+    lo = torch.stack(lo_cols + pad, dim=1)               # (NB, R_MAX)
+    hi = torch.stack(hi_cols + [z - 1 for z in pad], dim=1)
+    r_idx = torch.arange(R_MAX, device=dev)[None, :]
+    active = (~empty)[:, None] & (r_idx < len(offs))
+
+    r_start = starts[lo.clamp(0, num_cells)]
+    r_end = starts[(hi + 1).clamp(0, num_cells)]
+    count = torch.where(active & (r_end > r_start), r_end - r_start, 0)
+
+    # ---- flatten ranges into a per-block chunk table -------------------
+    astart = (r_start // 128) * 128
+    lead = r_start - astart
+    tot = lead + count                                   # (NB, R_MAX)
+    nch = torch.where(count > 0, (tot + ch - 1) // ch, 0)
+    cum = torch.cumsum(nch, dim=1)                       # inclusive
+    total = cum[:, -1]
+    n_dropped = (total - c_max).clamp(min=0).sum()
+
+    j = torch.arange(c_max, device=dev).expand(nb, c_max).contiguous()
+    r_of = torch.searchsorted(cum, j, right=True)        # range of chunk j
+    take = lambda a: torch.gather(a, 1, r_of.clamp(max=R_MAX - 1))
+    first_chunk = torch.where(
+        r_of > 0, torch.gather(cum, 1, (r_of - 1).clamp(0, R_MAX - 1)), 0)
+    c_in = j - first_chunk                               # chunk within range
+    nact = total.clamp(max=c_max)
+    valid_j = j < nact[:, None]
+    astart_j = torch.where(valid_j, take(astart) + c_in * ch, 0)
+    lo_j = torch.where(valid_j, (take(lead) - c_in * ch).clamp(0, ch), 0)
+    hi_j = torch.where(valid_j, (take(tot) - c_in * ch).clamp(0, ch), 0)
+    chunks = torch.stack([astart_j, lo_j, hi_j,
+                          nact[:, None].expand(nb, c_max)],
+                         dim=-1).to(torch.int32).contiguous()
+
+    max_occ = counts[:num_cells].max()
+    return snap, chunks, order, overflow_s, max_occ, counts, n_dropped
+
+
+# ---------------------------------------------------------------------------
+# the kernel and its plain version
+# ---------------------------------------------------------------------------
+
+
+def _pair_constants(cfg: NBodyConfig):
+    eps2 = as_f32(cfg.eps2)
+    r2 = (np.float32(cfg.collision_radius) ** 2).item()
+    return eps2, r2
+
+
+def _block_ids(chunks, blocks):
+    if blocks is None:
+        return torch.arange(chunks.shape[0], device=chunks.device)
+    return blocks.to(torch.int64)
+
+
+def cluster_pair_plain(cfg: NBodyConfig, snap: Snapshot, chunks, b: int,
+                       ch: int, blocks=None):
+    """Plain PyTorch version of the cluster-pair kernel, same inputs and
+    outputs: returns (acc (3, M) float32, gmax (M,) int32) for the rows of
+    the listed ``blocks`` (all blocks when ``None``) in that order,
+    M = len(blocks) * b.
+
+    Loops over chunk slots, vectorised over a batch of blocks, each step
+    bounded to about ``PLAIN_PAIRS`` pair elements.  ``d2`` and ``cd2`` are
+    plain float32 multiplies and adds in the kernel's order, so the pair and
+    contact tests agree with the kernel bit for bit."""
+    eps2, r2 = _pair_constants(cfg)
+    dev = snap.f.device
+    blk = _block_ids(chunks, blocks)
+    nsel = blk.numel()
+    rows = (blk[:, None] * b + torch.arange(b, device=dev)).reshape(-1)
+    mine = snap.f[:, rows].view(7, nsel, b, 1)
+    mine_gid = snap.i[0, rows].view(nsel, b, 1)
+    acc = torch.zeros((3, nsel, b), dtype=torch.float32, device=dev)
+    gmax = torch.full((nsel, b), IMIN, dtype=torch.int32, device=dev)
+    per = max(1, PLAIN_PAIRS // (b * ch))
+    for s0 in range(0, nsel, per):
+        sl = slice(s0, s0 + per)
+        ct = chunks[blk[sl]].to(torch.int64)            # (nbb, c_max, 4)
+        mx, my, mz, m1, m2, m3, _ = mine[:, sl]
+        for j in range(int(ct[:, 0, 3].max())):
+            lo, hi = ct[:, j, 1:2], ct[:, j, 2:3]
+            # no column at or past the batch's largest hi is in range
+            col = torch.arange(int(hi.max()), device=dev)
+            in_rng = (col >= lo) & (col < hi)           # (nbb, width)
+            cidx = torch.where(in_rng, ct[:, j, 0:1] + col, 0)
+            nx, ny, nz, n1, n2, n3, nw = snap.f[:, cidx].unsqueeze(2)
+            ngid, ncg = snap.i[:, cidx].unsqueeze(2)
+            dx, dy, dz = nx - mx, ny - my, nz - mz      # (nbb, b, width)
+            d2 = dx * dx + dy * dy + dz * dz
+            e1, e2, e3 = n1 - m1, n2 - m2, n3 - m3
+            cd2 = e1 * e1 + e2 * e2 + e3 * e3
+            pg = (cd2 <= 3.5) & (ngid != mine_gid[sl]) & in_rng[:, None, :]
+            rs = torch.rsqrt(d2 + eps2)
+            sw = torch.where(pg, rs * rs * rs, 0.0) * nw
+            gsel = torch.where(pg & (d2 <= r2), ncg, IMIN)
+            gmax[sl] = torch.maximum(gmax[sl], gsel.amax(dim=2))
+            acc[0, sl] += (dx * sw).sum(dim=2)
+            acc[1, sl] += (dy * sw).sum(dim=2)
+            acc[2, sl] += (dz * sw).sum(dim=2)
+    return acc.view(3, nsel * b), gmax.view(nsel * b)
+
+
+def cluster_pair_cuda(cfg: NBodyConfig, snap: Snapshot, chunks, b: int,
+                      ch: int, blocks=None):
+    """Launch the CUDA cluster-pair kernel (``csrc/neighbor_blocks.cu``);
+    same contract as :func:`cluster_pair_plain`.  Counts its launches in
+    ``cluster_pair_cuda.launches``."""
+    from ..utils.cuda_build import load_library
+
+    f, i = snap
+    n = f.shape[1]
+    dev = f.device
+    if dev.type != "cuda":
+        raise ValueError(f"cluster_pair_cuda needs CUDA tensors, got {dev}")
+    if f.dtype != torch.float32 or f.shape != (7, n) or not f.is_contiguous():
+        raise ValueError(f"snap.f must be contiguous float32 (7, N), got "
+                         f"{f.dtype} {tuple(f.shape)}")
+    if i.dtype != torch.int32 or i.shape != (2, n) or not i.is_contiguous():
+        raise ValueError(f"snap.i must be contiguous int32 (2, N), got "
+                         f"{i.dtype} {tuple(i.shape)}")
+    if (chunks.dtype != torch.int32 or chunks.dim() != 3
+            or chunks.shape[2] != 4 or not chunks.is_contiguous()):
+        raise ValueError("chunks must be a contiguous int32 (NB, c_max, 4)")
+    if chunks.shape[0] * b != n:
+        raise ValueError(f"{chunks.shape[0]} blocks of {b} rows != N={n}")
+    if not 0 < ch <= 6144 or not 0 < b <= 2048:
+        raise ValueError(f"unsupported tile b={b} ch={ch}")
+    for t in (i, chunks) + (() if blocks is None else (blocks,)):
+        if t.device != dev:
+            raise ValueError("all kernel inputs must be on one device")
+    if blocks is not None:
+        if blocks.dtype != torch.int32 or blocks.dim() != 1:
+            raise ValueError("blocks must be a 1-D int32 tensor")
+        if blocks.numel() and not (0 <= int(blocks.min())
+                                   and int(blocks.max()) < chunks.shape[0]):
+            raise ValueError("blocks must index the chunk table's blocks")
+        blocks = blocks.contiguous()
+    nsel = chunks.shape[0] if blocks is None else blocks.numel()
+    eps2, r2 = _pair_constants(cfg)
+    m = nsel * b
+    acc = torch.empty((3, m), dtype=torch.float32, device=dev)
+    gmax = torch.empty((m,), dtype=torch.int32, device=dev)
+    if m == 0:
+        return acc, gmax
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ps_cluster_pair(
+            f.data_ptr(), i.data_ptr(), n, chunks.data_ptr(),
+            None if blocks is None else blocks.data_ptr(), nsel, b, ch,
+            chunks.shape[1], eps2, r2,
+            acc.data_ptr(), m, gmax.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"cluster-pair kernel launch failed: CUDA error "
+                           f"{err}")
+    cluster_pair_cuda.launches += 1
+    return acc, gmax
+
+
+cluster_pair_cuda.launches = 0
+
+
+def kernel_call(cfg: NBodyConfig, snap: Snapshot, chunks,
+                ch: int | None = None, b: int | None = None):
+    """Run the cluster-pair kernel on prepared inputs; returns the
+    sorted-order (acc (3, N), gmax (N,) int32).  CUDA tensors launch the
+    CUDA kernel; CPU tensors take :func:`cluster_pair_plain`."""
+    ch = CH if ch is None else ch
+    b = B if b is None else b
+    dev = snap.f.device
+    if dev.type == "cuda":
+        return cluster_pair_cuda(cfg, snap, chunks, b, ch)
+    if dev.type == "cpu":
+        return cluster_pair_plain(cfg, snap, chunks, b, ch)
+    raise ValueError(f"no cluster-pair kernel for device {dev}")
+
+
+def unsort_outputs(acc_s, gmax_s, order, overflow_s, okeys):
+    """Scatter the sorted-order kernel outputs back to slot order; returns
+    (acc (N, 3), kill, touch, overflow).  ``okeys`` is the mine-side
+    collision order key (:func:`collision_okey` of the tags)."""
+    acc = torch.empty((order.shape[0], 3), dtype=acc_s.dtype,
+                      device=acc_s.device)
+    acc[order] = acc_s.T
+    gmax = torch.empty_like(gmax_s)
+    gmax[order] = gmax_s
+    overflow = torch.empty_like(overflow_s)
+    overflow[order] = overflow_s
+    return acc, gmax > okeys, gmax > IMIN, overflow
+
+
+def neighbor_pass_blocks(pos0, age0, w0, cell, alive, cfg: NBodyConfig,
+                         tags, c_max: int | None = None,
+                         ch: int | None = None, b: int | None = None
+                         ) -> Tuple[torch.Tensor, ...]:
+    """Full pass: returns per-slot (acc (N, 3), kill, touch, overflow,
+    max_cell_occupancy, per-cell counts, n_chunks_dropped), as the JAX
+    package's ``neighbor_pass_blocks``.  A nonzero ``n_chunks_dropped``
+    means some blocks' stencils exceeded the chunk budget and interactions
+    were lost; callers surface it (``NBodyStats.n_listed_dropped``)."""
+    ch = CH if ch is None else ch
+    b = B if b is None else b
+    snap, chunks, order, overflow_s, max_occ, counts, n_dropped = prepare(
+        pos0, age0, w0, cell, alive, cfg, tags, c_max=c_max, ch=ch, b=b)
+    acc_s, gmax_s = kernel_call(cfg, snap, chunks, ch=ch, b=b)
+    acc, kill, touch, overflow = unsort_outputs(
+        acc_s, gmax_s, order, overflow_s, collision_okey(tags))
+    # mine-side collision age window (the neighbor side rides cgid)
+    win = (age0 >= as_f32(cfg.kid_age)) & (age0 <= as_f32(cfg.particle_life))
+    return (acc, kill & win, touch & win, overflow, max_occ, counts,
+            n_dropped)

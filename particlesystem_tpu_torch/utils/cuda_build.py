@@ -1,0 +1,80 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``*.cu`` file under ``csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, bound with
+``ctypes``.  The library lands in ``_build/`` inside the package, named by
+a hash of the sources and flags, so the first call after a change builds
+it and later calls (and processes) reuse it.  Nothing is built or loaded
+when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: put the CUDA toolkit's bin/ on PATH "
+                       "or set CUDA_HOME")
+
+
+def _library_path() -> Path:
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libps_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the kernels unless the current sources are already built.
+    Returns (library path, build seconds (0 when reused), nvcc's output)."""
+    lib = _library_path()
+    if lib.exists():
+        return lib, 0.0, ""
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+    return lib, seconds, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare the C entry points."""
+    lib = ctypes.CDLL(str(build()[0]))
+    fn = lib.ps_cluster_pair
+    fn.argtypes = [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_float, _P, ctypes.c_longlong, _P, _P]
+    fn.restype = ctypes.c_int
+    return lib
