@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``particlesystem_tpu_torch/csrc`` and
-drives its main path, ``NBodySimulation(NBodyConfig(), device="cuda").run()``
-at the reference's size (1,048,576 particles, 16^3 grid, 2,097,152 slots),
-after checking the kernel against its plain PyTorch version and the port on
-the card against the port on the CPU.  Imports nothing of JAX: the machine
-with the card need not have it.
+Builds the port's CUDA kernels from ``particlesystem_tpu_torch/csrc`` and
+drives its two main paths: the n-body simulation,
+``NBodySimulation(NBodyConfig(), device="cuda").run()`` at the reference's
+size (1,048,576 particles, 16^3 grid, 2,097,152 slots), and the emitter
+engine, ``ParticleSystem(capacity=10_485_760, alloc="select")`` with the
+bench scene (BASELINE config 5, ``bench.py:44-62``).  Before each, it checks
+the path's kernel against its plain PyTorch version and the port on the
+card against the port on the CPU.  Imports nothing of JAX: the machine with
+the card need not have it.
 
 Phases (any failure raises and exits non-zero):
 
 0. the card: ``nvidia-smi`` name and power limit, torch's device name;
-1. build the kernel (nvcc, sm_90a) and print the build seconds;
+1. build the kernels (one nvcc per source, sm_90a) and print the build
+   seconds and ptxas's registers, stack and spills;
 2. kernel vs plain version on the card, on the prepared frame after two
    port frames of five small configs (three tile shapes, a 32-row/128-column
    tile, a 2-chunk budget that drops chunks): ``gmax`` exact, ``acc`` within
@@ -22,12 +26,27 @@ Phases (any failure raises and exits non-zero):
 3. 12 frames of the port on the card against the port on the CPU (plain
    version): every stat and the alive/parent masks exact, floats by the
    chaotic-trajectory rule of tests/test_nbody_parity.py;
-4. the main path: ``run(10)`` twice at full size (the second call runs on
-   the compacted active prefix), the kernel's launch count from those 20
-   frames, ms/frame of the second call (CUDA events), peak device memory,
-   then kernel vs plain version timed on 64 evenly spaced live blocks.
+4. the n-body main path: ``run(10)`` twice at full size (the second call
+   runs on the compacted active prefix), the kernel's launch count from
+   those 20 frames, ms/frame of the second call (CUDA events), peak device
+   memory, then kernel vs plain version timed on 64 evenly spaced live
+   blocks, with the candidate pairs they evaluate and their bound;
+5. the physics-step kernel vs its plain version on the card, bit for bit:
+   packed8 and slim, without and with the spawn window (cursor at the first
+   and the last window), at 10,485,760 slots (bench scene) and at 32,768
+   (no drag, two planes, two spheres);
+6. 25 frames of the emitter engine on the card against the CPU for every
+   (alloc, layout) pair at 16,384 slots: bookkeeping and alive masks exact,
+   fields within 1e-4;
+7. the emitter main path: ``ParticleSystem`` at 10,485,760 slots for
+   ``step(60)`` twice, then ``PackedEngine`` from an all-alive state at
+   1,048,576 and 10,485,760 slots (select/packed8, ring/packed8,
+   select/slim): ms/frame over ``step_many(64)`` and ``step_many(512)``,
+   particle-steps/s, launches, peak memory, kernels per frame from
+   ``torch.profiler``; then each kernel variant vs the plain version timed
+   at both sizes (plain, kernel, kernel, plain) beside its bound.
 
-The last lines are one JSON object describing the kernel, the card's name
+The last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -40,6 +59,21 @@ import time
 
 SUBSET_BLOCKS = 64
 MAIN_ITERS = 10
+
+# published peaks of one H100 SXM (dense, no sparsity): device memory rate
+# and float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+EMIT_SLOTS = 10 * 2 ** 20          # bench.py's 10M scene (BASELINE config 5)
+ENGINE_SLOTS = (1 << 20, EMIT_SLOTS)
+ENGINE_RUNS = (("select", "packed8"), ("ring", "packed8"), ("select", "slim"))
+ENGINE_PAIRS = (("exact", "packed8", 1), ("exact", "packed8", 4),
+                ("ring", "packed8", 1), ("strided", "packed8", 1),
+                ("select", "packed8", 1), ("ring", "slim", 1),
+                ("strided", "slim", 1), ("select", "slim", 1))
+STEP_MANY = (64, 512)
+TRAJ_TOL = 1e-4                    # tests/test_pallas_step.py:94
 
 
 def card_line() -> str:
@@ -76,6 +110,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def roofline_ms(n_bytes: float, flops: float):
+    """(least milliseconds, what bounds it): the larger of the bytes over
+    the device-memory rate and the operations over the float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_launches():
+    from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
+    from particlesystem_tpu_torch.ops import physics_kernel as pk
+    nbk.cluster_pair_cuda.launches = 0
+    pk.physics_step_cuda.launches = 0
+
+
+def launches():
+    from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
+    from particlesystem_tpu_torch.ops import physics_kernel as pk
+    return dict(cluster_pair=nbk.cluster_pair_cuda.launches,
+                physics_step=pk.physics_step_cuda.launches)
+
+
 def frame_inputs(cfg, state, **tiles):
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
     from particlesystem_tpu_torch.ops.grid import coords_to_cell, wrap_positions
@@ -101,6 +157,50 @@ def compare_kernel(cfg, snap, chunks, b, ch, blocks=None):
     assert err / scale <= 1e-5, \
         f"acc error {err} exceeds 1e-5 of max(1, max|acc|) = {scale}"
     return err
+
+
+def pair_work(cfg, snap, chunks, b, blocks=None):
+    """(candidate pairs, pairs inside the stencil, bytes, flops) of one
+    kernel call over the listed blocks (all when None).
+
+    Candidates are the valid columns of each listed chunk times the block's
+    b rows; each costs the cell-delta test (3 sub, 3 mul, 2 add = 8 flops,
+    csrc/neighbor_blocks.cu:105-110).  A pair inside the 3x3x3 stencil with
+    another particle also costs the gravity term (3 sub, 3 mul, 3 add, one
+    rsqrt, 3 mul, 3 fma = 19 flops, :112-122).  Rows with in-band cell
+    coordinates are counted per cell, and a row's stencil partners are the
+    27-cell box sum less itself: with no chunk dropped, the chunk table
+    lists every one of them."""
+    import torch
+    import torch.nn.functional as F
+    g = cfg.grid.grid_dim
+    dev = chunks.device
+    blk = (torch.arange(chunks.shape[0], device=dev) if blocks is None
+           else blocks.to(torch.int64))
+    ct = chunks[blk].to(torch.int64)
+    listed = torch.arange(ct.shape[1], device=dev) < ct[:, :1, 3]
+    widths = torch.where(listed, ct[..., 2] - ct[..., 1], 0)
+    candidates = int(widths.sum()) * b
+
+    ok = snap.f[3] >= 0                       # in-band cell coordinates
+    i1, i2, i3 = (snap.f[k].round().to(torch.int64).clamp(0, g - 1)
+                  for k in (3, 4, 5))
+    cnt = torch.zeros((g, g, g), dtype=torch.int64, device=dev)
+    cnt.index_put_((i3[ok], i1[ok], i2[ok]),
+                   torch.ones_like(i1[ok]), accumulate=True)
+    pad = F.pad(cnt, (1, 1, 1, 1, 1, 1))
+    box = sum(pad[a:a + g, c:c + g, e:e + g]
+              for a in range(3) for c in range(3) for e in range(3))
+    partners = torch.where(ok, box[i3, i1, i2] - 1, 0)
+    rows = (blk[:, None] * b + torch.arange(b, device=dev)).reshape(-1)
+    inside = int(partners[rows].sum())
+
+    flops = 8 * candidates + 19 * inside
+    n_rows = rows.numel()
+    columns = min(snap.f.shape[1], int(widths.sum()))
+    n_bytes = (36 * columns + 28 * n_rows + 16 * ct.numel()   # inputs
+               + 16 * n_rows)                                   # acc, gmax
+    return candidates, inside, n_bytes, flops
 
 
 def phase_kernel_vs_plain(dev):
@@ -190,7 +290,7 @@ def phase_main_path(dev):
 
     cfg = NBodyConfig()
     torch.cuda.reset_peak_memory_stats()
-    nbk.cluster_pair_cuda.launches = 0
+    reset_launches()
     sim = NBodySimulation(cfg, device=dev)
     t0 = time.perf_counter()
     sim.run(MAIN_ITERS, verbose=True)
@@ -202,14 +302,16 @@ def phase_main_path(dev):
     sim.run(MAIN_ITERS, verbose=True)
     end.record()
     torch.cuda.synchronize()
-    launches = nbk.cluster_pair_cuda.launches
+    counts = launches()
+    n_launch = counts["cluster_pair"]
     ms_frame = start.elapsed_time(end) / MAIN_ITERS
     peak = torch.cuda.max_memory_allocated()
 
     st = sim.state
     alive = st.alive
     n_alive = int(alive.sum())
-    assert launches == 2 * MAIN_ITERS, f"kernel launched {launches} times"
+    assert counts == dict(cluster_pair=2 * MAIN_ITERS, physics_step=0), \
+        f"kernel launches {counts}"
     assert sim.n_degraded_frames == 0 and int(
         sim.last_stats.n_listed_dropped) == 0, "chunks dropped"
     assert n_alive > 0, "nothing alive"
@@ -221,7 +323,7 @@ def phase_main_path(dev):
           f"full width, includes warm-up); frames {MAIN_ITERS + 1}-"
           f"{2 * MAIN_ITERS} {ms_frame:.3f} ms/frame on active prefix "
           f"{active_second or cfg.slots} of {cfg.slots} slots; alive "
-          f"{n_alive}; kernel launches {launches}; peak memory "
+          f"{n_alive}; kernel launches {n_launch}; peak memory "
           f"{peak} bytes ({peak / 2**30:.3f} GiB)")
 
     # kernel vs plain on 64 evenly spaced live blocks of this frame
@@ -242,13 +344,396 @@ def phase_main_path(dev):
     plain_ms2 = cuda_ms(plain, 3)
     full_ms = cuda_ms(lambda: nbk.cluster_pair_cuda(cfg, snap, chunks,
                                                     nbk.B, nbk.CH), 5)
+    sub = pair_work(cfg, snap, chunks, nbk.B, blocks)
+    full = pair_work(cfg, snap, chunks, nbk.B)
+    sub_bound, sub_by = roofline_ms(*sub[2:])
+    full_bound, full_by = roofline_ms(*full[2:])
     print(f"phase 4: {SUBSET_BLOCKS}-block subset of {chunks.shape[0]} "
           f"blocks: kernel {kern_ms:.4f} / {kern_ms2:.4f} ms, plain "
           f"{plain_ms:.3f} / {plain_ms2:.3f} ms (plain, kernel, kernel, "
           f"plain); acc max abs err {err:.3e}; whole-frame kernel "
           f"{full_ms:.3f} ms")
-    return dict(launches=launches, err=err, ms=min(kern_ms, kern_ms2),
-                plain_ms=min(plain_ms, plain_ms2))
+    for what, (cand, inside, nbytes, flops), t, by in (
+            ("subset", sub, sub_bound, sub_by),
+            ("whole frame", full, full_bound, full_by)):
+        print(f"phase 4: {what}: {cand} candidate pairs, {inside} inside "
+              f"the stencil, {flops} flops, {nbytes} bytes; bound "
+              f"{t:.4f} ms ({by})")
+    return dict(launches=n_launch, err=err, ms=min(kern_ms, kern_ms2),
+                plain_ms=min(plain_ms, plain_ms2), bound_ms=sub_bound,
+                bound_by=sub_by)
+
+
+# ---------------------------------------------------------------------------
+# the emitter engine
+# ---------------------------------------------------------------------------
+
+
+def bench_scene(capacity: int):
+    """bench.py:44-62: two emitters (spawn budgets 1001 + 668 rows, padded
+    to 2048), a ground plane and a sphere, drag toward a wind."""
+    from particlesystem_tpu_torch import (Emitter, EmitterSceneConfig,
+                                          PlaneCollider, SphereCollider)
+    return EmitterSceneConfig(
+        capacity=capacity, dt=1.0 / 60.0, gravity=(0.0, -9.8, 0.0),
+        wind=(2.0, 0.0, -0.5), drag=0.2,
+        emitters=(
+            Emitter(pos=(0.0, 1.0, 0.0), direction=(0.0, 1.0, 0.0),
+                    speed=10.0, rate=60_000.0, life_min=20.0, life_max=40.0),
+            Emitter(pos=(5.0, 1.0, 0.0), direction=(-0.2, 1.0, 0.1),
+                    speed=8.0, rate=40_000.0, life_min=20.0, life_max=40.0)),
+        planes=(PlaneCollider(point=(0, 0, 0), normal=(0, 1, 0),
+                              restitution=0.5, friction=0.2),),
+        spheres=(SphereCollider(center=(2.0, 3.0, 0.0), radius=1.5,
+                                restitution=0.4, friction=0.1),),
+        seed=1)
+
+
+def undamped_scene(capacity: int):
+    """No drag, two tilted planes, two spheres."""
+    from particlesystem_tpu_torch import (Emitter, EmitterSceneConfig,
+                                          PlaneCollider, SphereCollider)
+    return EmitterSceneConfig(
+        capacity=capacity, dt=1 / 50, gravity=(0.5, -9.8, 0.25),
+        emitters=(Emitter(rate=3000.0),),
+        planes=(PlaneCollider(point=(0, 0, 0), normal=(0.1, 1, 0.05),
+                              restitution=0.7, friction=0.1),
+                PlaneCollider(point=(4.0, 0, 0), normal=(-1, 0.2, 0),
+                              restitution=0.3, friction=0.45)),
+        spheres=(SphereCollider(center=(0.3, 1.5, 0.0), radius=0.9,
+                                restitution=0.4, friction=0.1),
+                 SphereCollider(center=(2.0, 0.5, 1.0), radius=1.2,
+                                restitution=0.8, friction=0.0)),
+        seed=5)
+
+
+def random_fields(n: int, seed: int, slim: bool = False):
+    """numpy float32 fields: 30% never-spawned rows, some expired rows,
+    positions below the ground plane and inside the spheres.  ``slim``
+    turns (age, life) into a death frame (0 for never-spawned rows)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-3.0, 5.0, (3, n)).astype(np.float32)
+    vel = rng.uniform(-6.0, 6.0, (3, n)).astype(np.float32)
+    life = rng.uniform(0.0, 2.0, n).astype(np.float32)
+    life[rng.uniform(size=n) < 0.3] = 0.0
+    age = (life * rng.uniform(0.0, 1.1, n)).astype(np.float32)
+    if slim:
+        return (*pos, *vel, np.floor(life * 60.0).astype(np.float32))
+    return (*pos, *vel, age, life)
+
+
+def full_packed(n: int, seed: int):
+    """bench.py:65-73: every slot alive with a long lifetime."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-20.0, 20.0, (3, n)).astype(np.float32)
+    vel = rng.uniform(-5.0, 5.0, (3, n)).astype(np.float32)
+    life = rng.uniform(30.0, 60.0, n).astype(np.float32)
+    return (*pos, *vel, (life * np.float32(0.1)).astype(np.float32), life)
+
+
+def spawn_window(n_fields: int, w: int, n_valid: int, cursor: int, dev,
+                 seed: int):
+    """Random padded spawn rows with the first ``n_valid`` of ``w`` valid,
+    and the cursor as a device int32."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    rows = torch.rand((n_fields, w), generator=gen) * 4.0 - 1.0
+    valid = torch.arange(w) < n_valid
+    return (rows.to(dev), valid.to(dev),
+            torch.tensor(cursor, dtype=torch.int32, device=dev))
+
+
+def physics_work(cfg, fields, window):
+    """(bytes, flops) one physics-step call needs on these inputs.  Every
+    field is read once; a live row writes its six coordinates (and age on
+    packed8), a dead row writes nothing, and a valid window row writes its
+    spawn row instead.  Flops are those of the no-contact path (drag 9,
+    Euler 12, 8 per plane, 10 per sphere, age 1; contacts add more)."""
+    import torch
+    nf = len(fields)
+    n = fields[0].shape[0]
+    if nf == 7:
+        live = fields[6] > 0
+    else:
+        live = (fields[6] <= fields[7]) & (fields[7] > 0)
+    n_bytes = 4 * nf * n
+    spawned = torch.zeros_like(live)
+    if window is not None:
+        rows, valid, cursor = window
+        w = valid.shape[0]
+        c = int(cursor)
+        spawned[c:c + w] = valid
+        n_bytes += rows.numel() * 4 + w + 4
+    n_phys = int((live & ~spawned).sum())
+    n_bytes += 4 * (6 if nf == 7 else 7) * n_phys + 4 * nf * int(
+        spawned.sum())
+    per_row = ((9 if cfg.drag else 0) + 12 + 8 * len(cfg.planes)
+               + 10 * len(cfg.spheres) + (0 if nf == 7 else 1))
+    return n_bytes, per_row * n_phys
+
+
+def compare_physics(cfg, host_fields, window, dev):
+    """Kernel vs plain version on the same card inputs, bit for bit;
+    returns the largest absolute difference (0.0 when bitwise)."""
+    import torch
+    from particlesystem_tpu_torch.ops import physics_kernel as pk
+    fields = tuple(torch.tensor(a, device=dev) for a in host_fields)
+    want = pk.physics_step_plain(fields, cfg, window)
+    got = pk.physics_step_cuda(tuple(f.clone() for f in fields), cfg, window)
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), \
+            f"field {i}: {int((g != w).sum())} rows differ, max {err}"
+    return err
+
+
+def phase_physics_vs_plain(dev):
+    from particlesystem_tpu_torch.runtime.engine import PackedEngine
+    worst = 0.0
+    for cfg, seed in ((bench_scene(EMIT_SLOTS), 21),
+                      (undamped_scene(32768), 22)):
+        n = cfg.slots
+        w = PackedEngine(cfg, alloc="strided", device=dev).spawn_width
+        for layout in ("packed8", "slim"):
+            host = random_fields(n, seed, slim=layout == "slim")
+            nf = len(host)
+            for cursor in (None, 0, n - w):
+                window = None if cursor is None else spawn_window(
+                    nf, w, w * 4 // 5, cursor, dev, seed)
+                err = compare_physics(cfg, host, window, dev)
+                worst = max(worst, err)
+                where = ("no window" if cursor is None
+                         else f"window at cursor {cursor}")
+                print(f"phase 5: {n} slots, {len(cfg.planes)} planes, "
+                      f"{len(cfg.spheres)} spheres, drag {cfg.drag}, "
+                      f"{layout}, {where}: kernel == plain bit for bit")
+    return worst
+
+
+def engine_alive(eng, fields, frame):
+    if eng.layout == "slim":
+        return frame < fields[6]
+    return (fields[6] <= fields[7]) & (fields[7] > 0)
+
+
+def phase_engine_card_vs_cpu(dev):
+    import numpy as np
+    from particlesystem_tpu_torch.runtime.engine import (
+        PackedEngine, engine_state_to_numpy)
+    cfg = bench_scene(16384)
+    init = random_fields(cfg.slots, 23)
+    worst = 0.0
+    for alloc, layout, refresh in ENGINE_PAIRS:
+        kw = dict(alloc=alloc, layout=layout, refresh_interval=refresh)
+        card = PackedEngine(cfg, device=dev, **kw)
+        host = PackedEngine(cfg, device="cpu", **kw)
+        sc, sh = card.init(init), host.init(init)
+        reset_launches()
+        nf = card.n_fields
+        for frame in range(25):
+            sc, sh = card.step(sc), host.step(sh)
+            a, b = engine_state_to_numpy(sc), engine_state_to_numpy(sh)
+            for name, x, y in zip(("accum", "free_list", "cursor", "n_free"),
+                                  a[nf:], b[nf:]):
+                assert np.array_equal(x, y), f"{alloc}/{layout}: {name}"
+            fa = [f.cpu().numpy() for f in card.flat_fields(sc)]
+            fb = [f.cpu().numpy() for f in host.flat_fields(sh)]
+            assert np.array_equal(engine_alive(card, fa, sc.frame),
+                                  engine_alive(host, fb, sh.frame)), \
+                f"{alloc}/{layout} frame {frame}: alive masks differ"
+            for i, (x, y) in enumerate(zip(a[:nf], b[:nf])):
+                err = np.abs(x - y)
+                assert (err <= TRAJ_TOL + TRAJ_TOL * np.abs(y)).all(), \
+                    f"{alloc}/{layout} frame {frame} field {i}: {err.max()}"
+                worst = max(worst, float(err.max()))
+        assert launches()["physics_step"] == 25, \
+            f"{alloc}/{layout}: the card's frames bypassed the kernel"
+        n_alive = int(card.alive_count(sc))
+        assert n_alive == int(host.alive_count(sh)) > 0
+        print(f"phase 6: {alloc}/{layout} refresh {refresh}: 25 frames card "
+              f"== cpu (bookkeeping and alive exact, {n_alive} alive, 25 "
+              f"kernel launches)")
+    print(f"phase 6: largest field difference {worst:.3e} (limit "
+          f"{TRAJ_TOL} + {TRAJ_TOL} * |cpu|)")
+
+
+def check_emitter_state(eng, es, what):
+    """No NaN; alive rows above the ground plane; age <= life (packed8)."""
+    import torch
+    f = eng.flat_fields(es)
+    for i, t in enumerate(f):
+        assert torch.isfinite(t).all(), f"{what}: field {i} not finite"
+    alive = engine_alive(eng, f, es.frame)
+    assert (f[1][alive] >= 0).all(), f"{what}: alive row below the plane"
+    if eng.layout == "packed8":
+        assert (f[6][alive] <= f[7][alive]).all(), f"{what}: age > life"
+    return int(alive.sum())
+
+
+def profile_frames(eng, es, k):
+    """(state, kernels per frame, copies and sets per frame, device busy
+    share) over ``k`` frames, from torch.profiler's device events (the
+    tracer can miss some, so both are lower bounds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        es = eng.step_many(es, k)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    moves = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    return (es, (len(events) - len(moves)) / k, len(moves) / k,
+            busy_us / wall_us)
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn``'s device work with the host's time
+    between launches left out: ``reps`` calls captured once in a CUDA
+    graph, then one replay timed with CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_emitter_main_path(dev):
+    import torch
+    from particlesystem_tpu_torch.api import ParticleSystem
+    from particlesystem_tpu_torch.ops import physics_kernel as pk
+    from particlesystem_tpu_torch.runtime.engine import PackedEngine
+
+    # the main path: the scene built through ParticleSystem, full width
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ps = (ParticleSystem(capacity=EMIT_SLOTS, dt=1.0 / 60.0,
+                         gravity=(0.0, -9.8, 0.0), wind=(2.0, 0.0, -0.5),
+                         drag=0.2, seed=1, alloc="select", device=dev)
+          .add_emitter(pos=(0.0, 1.0, 0.0), direction=(0.0, 1.0, 0.0),
+                       speed=10.0, rate=60_000.0, life_min=20.0,
+                       life_max=40.0)
+          .add_emitter(pos=(5.0, 1.0, 0.0), direction=(-0.2, 1.0, 0.1),
+                       speed=8.0, rate=40_000.0, life_min=20.0,
+                       life_max=40.0)
+          .add_plane(point=(0, 0, 0), normal=(0, 1, 0), restitution=0.5,
+                     friction=0.2)
+          .add_sphere(center=(2.0, 3.0, 0.0), radius=1.5, restitution=0.4,
+                      friction=0.1))
+    assert ps.config == bench_scene(EMIT_SLOTS)
+    t0 = time.perf_counter()
+    ps.step(60)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ps.step(60)
+    end.record()
+    torch.cuda.synchronize()
+    counts = launches()
+    assert counts == dict(cluster_pair=0, physics_step=120), \
+        f"kernel launches {counts}"
+    n_alive = check_emitter_state(ps._engine, ps._es, "ParticleSystem")
+    assert n_alive == ps.alive_count() > 0
+    print(f"phase 7: ParticleSystem {EMIT_SLOTS} slots, select/packed8: "
+          f"frames 1-60 {first_s:.3f} s (first call); frames 61-120 "
+          f"{start.elapsed_time(end) / 60:.4f} ms/frame; alive {n_alive}; "
+          f"kernel launches {counts['physics_step']}; peak memory "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+
+    # bench.py:80-119: the engine from an all-alive state
+    for n in ENGINE_SLOTS:
+        cfg = bench_scene(n)
+        init = full_packed(n, 24)
+        for alloc, layout in ENGINE_RUNS:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            eng = PackedEngine(cfg, alloc=alloc, layout=layout, device=dev)
+            es = eng.init(init)
+            es = eng.step_many(es, 8)                    # warm-up
+            frames = 8
+            ms = {}
+            for k in STEP_MANY:
+                start.record()
+                es = eng.step_many(es, k)
+                end.record()
+                torch.cuda.synchronize()
+                ms[k] = start.elapsed_time(end) / k
+                frames += k
+            counts = launches()
+            assert counts == dict(cluster_pair=0, physics_step=frames), \
+                f"{alloc}/{layout}: kernel launches {counts}"
+            n_alive = check_emitter_state(eng, es, f"{n} {alloc}/{layout}")
+            assert n_alive == int(eng.alive_count(es)) > 0
+            short, long_ = STEP_MANY
+            line = (f"phase 7: engine {n} slots {alloc}/{layout}: "
+                    f"{ms[short]:.4f} ms/frame over {short} frames, "
+                    f"{ms[long_]:.4f} over {long_}; "
+                    f"{n / ms[long_] * 1e3:.4e} particle-steps/s; "
+                    f"launches {counts['physics_step']} "
+                    f"for {frames} frames; alive {n_alive}; peak memory "
+                    f"{torch.cuda.max_memory_allocated()} bytes")
+            if (alloc, layout) == ENGINE_RUNS[0]:
+                es, kernels, moves, busy = profile_frames(eng, es, 8)
+                line += (f"; profiler: {kernels:.1f} kernels and {moves:.1f} "
+                         f"copies/sets a frame, device busy {busy:.1%}")
+            print(line)
+            del es, eng
+
+    # each kernel variant alone vs its plain version (plain, kernel,
+    # kernel, plain), on all-alive fields
+    timings = {}
+    for n in ENGINE_SLOTS:
+        cfg = bench_scene(n)
+        w = PackedEngine(cfg, alloc="strided", device=dev).spawn_width
+        packed = full_packed(n, 25)
+        for layout in ("packed8", "slim"):
+            host = packed
+            if layout == "slim":
+                host = (*packed[:6], packed[7] * 60.0)       # death > 0
+            fields = tuple(torch.tensor(a, device=dev) for a in host)
+            for windowed in (False, True):
+                window = (spawn_window(len(host), w, 1669, n - w, dev, 26)
+                          if windowed else None)
+                n_bytes, flops = physics_work(cfg, fields, window)
+                t_bound, by = roofline_ms(n_bytes, flops)
+                plain = lambda: pk.physics_step_plain(fields, cfg, window)
+                kern = lambda: pk.physics_step_cuda(fields, cfg, window)
+                p1 = cuda_ms(plain, 3)
+                k1 = cuda_ms(kern, 50)
+                k2 = cuda_ms(kern, 50)
+                p2 = cuda_ms(plain, 3)
+                dev_ms = graph_ms(kern, 50)
+                name = f"{layout}{' + window' if windowed else ''}"
+                timings[(n, name)] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                                          bound_ms=t_bound, bound_by=by)
+                print(f"phase 7: physics kernel {n} slots {name}: kernel "
+                      f"{k1:.4f} / {k2:.4f} ms, plain {p1:.3f} / {p2:.3f} ms "
+                      f"(plain, kernel, kernel, plain), kernel {dev_ms:.4f} "
+                      f"ms in a CUDA graph; {n_bytes} bytes, {flops} flops: "
+                      f"bound {t_bound:.4f} ms ({by}), "
+                      f"{t_bound / min(k1, k2):.1%} of it by launches, "
+                      f"{t_bound / dev_ms:.1%} in the graph")
+    main = timings[(EMIT_SLOTS, "packed8 + window")]
+    return dict(launches=120, **main)
 
 
 def main() -> int:
@@ -264,13 +749,17 @@ def main() -> int:
     _, build_s, log = cuda_build.build()
     print(f"phase 1: kernel build {build_s:.2f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(k in line for k in ("Compiling entry", "registers", "spill",
+                                   "stack")):
             print(f"  ptxas: {line.strip()}")
 
     dev = torch.device("cuda", 0)
     worst = phase_kernel_vs_plain(dev)
     phase_card_vs_cpu(dev)
     main_path = phase_main_path(dev)
+    physics_err = phase_physics_vs_plain(dev)
+    phase_engine_card_vs_cpu(dev)
+    emitter = phase_emitter_main_path(dev)
 
     kernels = [{
         "name": "cluster_pair",
@@ -281,6 +770,21 @@ def main() -> int:
         "max_abs_err": max(worst, main_path["err"]),
         "ms": main_path["ms"],
         "plain_ms": main_path["plain_ms"],
+        "bound_ms": main_path["bound_ms"],
+        "bound_by": main_path["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "physics_step",
+        "route": "cuda",
+        "source": "particlesystem_tpu_torch/csrc/physics_step.cu",
+        "replaces": "particlesystem_tpu/ops/pallas_step.py:39",
+        "launches": emitter["launches"],
+        "max_abs_err": physics_err,
+        "ms": emitter["ms"],
+        "plain_ms": emitter["plain_ms"],
+        "bound_ms": emitter["bound_ms"],
+        "bound_by": emitter["bound_by"],
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -7,13 +7,15 @@ PyTorch version beside it that CPU tensors take.  The JAX package stays the
 reference the port is tested against; this package never imports JAX.
 """
 
+from .api import NBodySimulation, ParticleSystem
 from .core import (Emitter, EmitterSceneConfig, GridSpec, NBodyConfig,
                    ParticleState, PlaneCollider, SphereCollider, zero_state)
+from .runtime.engine import PackedEngine
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Emitter", "EmitterSceneConfig", "GridSpec", "NBodyConfig",
-    "ParticleState", "PlaneCollider", "SphereCollider", "zero_state",
-    "__version__",
+    "NBodySimulation", "PackedEngine", "ParticleState", "ParticleSystem",
+    "PlaneCollider", "SphereCollider", "zero_state", "__version__",
 ]

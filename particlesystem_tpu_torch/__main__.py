@@ -3,6 +3,7 @@
 
     python -m particlesystem_tpu_torch nbody --particles 1048576 \
         --grid-dim 16 --iterations 10 --device cuda
+    python -m particlesystem_tpu_torch demo --capacity 1000000 --frames 600
 """
 
 from __future__ import annotations
@@ -21,6 +22,23 @@ def _cmd_nbody(args):
     print(sim.timers.report())
 
 
+def _cmd_demo(args):
+    from .api import ParticleSystem
+
+    ps = (ParticleSystem(capacity=args.capacity, dt=1 / 60,
+                         gravity=(0, -9.8, 0), drag=0.2, wind=(2.0, 0, 0),
+                         alloc=args.alloc, layout=args.layout,
+                         device=args.device)
+          .add_emitter(pos=(0.0, 1.0, 0.0), rate=args.capacity * 0.5,
+                       speed=9.0, life_min=1.0, life_max=2.0)
+          .add_plane(restitution=0.5, friction=0.2))
+    chunk = 60
+    for _ in range(args.frames // chunk):
+        ps.step(chunk)
+        print(f"frame {ps.frame}: alive {ps.alive_count()}")
+    print(ps.timers.report())
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="particlesystem_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -37,6 +55,19 @@ def main(argv=None):
                         "divide by it). 0 = auto: largest divisor of "
                         "--iterations <= 16. 1 = per-frame readbacks")
     p.set_defaults(fn=_cmd_nbody)
+
+    p = sub.add_parser("demo", help="run an emitter demo scene")
+    p.add_argument("--capacity", type=int, default=1 << 20)
+    p.add_argument("--frames", type=int, default=600)
+    p.add_argument("--alloc", choices=("exact", "ring", "strided", "select"),
+                   default="ring", help="slot recycling policy")
+    p.add_argument("--layout", choices=("packed8", "slim"),
+                   default="packed8",
+                   help="state layout (slim: derived liveness, 7 fields)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (cuda needs a card; cpu runs the "
+                        "kernels' plain versions)")
+    p.set_defaults(fn=_cmd_demo)
 
     args = parser.parse_args(argv)
     args.fn(args)

@@ -133,6 +133,12 @@ def per_tag_unit_vectors(k, tags: torch.Tensor) -> torch.Tensor:
     return _lattice_unit(_per_tag_u01(k, tags, 3))
 
 
+def random_unit_vectors(k, n: int, device) -> torch.Tensor:
+    """``(n, 3)`` random unit vectors from one uniform draw under ``k``
+    (integer-lattice construction, ``app.cu:301-316``)."""
+    return _lattice_unit(uniform01(k, (n, 3), device))
+
+
 def _lattice_unit(u: torch.Tensor) -> torch.Tensor:
     """Three ints ``floor(u*100) - 50`` in [-50, 49], normalized; the
     all-zero draw (the reference divides by zero) falls back to +x."""

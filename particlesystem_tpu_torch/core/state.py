@@ -18,7 +18,7 @@ from and to the JAX package's leaves, with uint32 tags on the numpy side.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -74,6 +74,28 @@ def zero_state(slots: int, device) -> ParticleState:
         alive=b(), parent=b(),
         tag=torch.zeros((slots,), dtype=torch.int64, device=device),
     )
+
+
+def pack_state(state: ParticleState):
+    """Eight per-field ``(N,)`` float32 views (x, y, z, vx, vy, vz, age,
+    life): the layout the emitter engine's physics kernel streams."""
+    return (state.pos[:, 0], state.pos[:, 1], state.pos[:, 2],
+            state.vel[:, 0], state.vel[:, 1], state.vel[:, 2],
+            state.age, state.life)
+
+
+def unpack_state(packed, template: Optional[ParticleState] = None
+                 ) -> ParticleState:
+    """Inverse of :func:`pack_state`; ``acc``, ``w``, ``parent`` and ``tag``
+    come from ``template`` (all zero without one).  ``alive`` is derived as
+    ``age <= life`` and ``life > 0`` (the emitter-scene convention)."""
+    age, life = packed[6], packed[7]
+    if template is None:
+        template = zero_state(age.shape[0], age.device)
+    return dataclasses.replace(
+        template, pos=torch.stack(packed[0:3], dim=1),
+        vel=torch.stack(packed[3:6], dim=1), age=age, life=life,
+        alive=(age <= life) & (life > 0))
 
 
 def state_from_numpy(arrays: Dict[str, np.ndarray], device) -> ParticleState:

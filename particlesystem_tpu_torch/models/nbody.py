@@ -27,6 +27,7 @@ import torch
 from ..core import rng
 from ..core.config import NBodyConfig
 from ..core.state import FIELDS, ParticleState, zero_state
+from ..ops.compact import rank_table, write_rows
 from ..ops.grid import coords_to_cell, wrap_positions
 from ..ops.neighbor import as_f32
 from ..ops.neighbor_blocks import neighbor_pass_blocks
@@ -93,25 +94,6 @@ def _count(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(dtype=torch.int64)
 
 
-def _rank_table(mask: torch.Tensor, e: int) -> torch.Tensor:
-    """(e,) table of the slots where ``mask`` holds, ascending; entries past
-    the mask's count are ``n`` (one past the last slot)."""
-    n = mask.shape[0]
-    rank = torch.cumsum(mask, dim=0) - 1
-    dest = torch.where(mask & (rank < e), rank, e)
-    table = torch.full((e + 1,), n, dtype=torch.int64, device=mask.device)
-    table.scatter_(0, dest, torch.arange(n, device=mask.device))
-    return table[:e]
-
-
-def _write_rows(base: torch.Tensor, tgt: torch.Tensor, rows) -> torch.Tensor:
-    """Copy of ``base`` with ``rows`` written at slots ``tgt``; targets equal
-    to ``len(base)`` are dropped (they land on a scratch row)."""
-    out = torch.cat([base, base[:1]])
-    out[tgt] = rows
-    return out[:-1]
-
-
 def lifecycle_update(state: ParticleState, pos_w: torch.Tensor,
                      overflow: torch.Tensor, acc: torch.Tensor,
                      kill: torch.Tensor, touch: torch.Tensor,
@@ -163,19 +145,19 @@ def lifecycle_update(state: ParticleState, pos_w: torch.Tensor,
     n_child = _count(explode)
     k = torch.minimum(n_child, _count(free)).clamp(max=e)
     ok = torch.arange(e, device=n_child.device) < k
-    src = _rank_table(explode, e).clamp(max=n - 1)
-    tgt = torch.where(ok, _rank_table(free, e), n)
+    src = rank_table(explode, e).clamp(max=n - 1)
+    tgt = torch.where(ok, rank_table(free, e), n)
 
     child_tag = rng.tag_mix(state.tag[src], frame)
-    pos = _write_rows(pos, tgt, pos[src])
-    vel = _write_rows(vel, tgt, -evel[src])
-    accf = _write_rows(accf, tgt, 0.0)
-    w = _write_rows(w, tgt, as_f32(cfg.weight))
-    age = _write_rows(age, tgt, 0.0)
-    lifef = _write_rows(lifef, tgt, fert[src])
-    alive_out = _write_rows(alive2, tgt, True)
-    parent = _write_rows(parent, tgt, False)
-    tag = _write_rows(state.tag, tgt, child_tag)
+    pos = write_rows(pos, tgt, pos[src])
+    vel = write_rows(vel, tgt, -evel[src])
+    accf = write_rows(accf, tgt, 0.0)
+    w = write_rows(w, tgt, as_f32(cfg.weight))
+    age = write_rows(age, tgt, 0.0)
+    lifef = write_rows(lifef, tgt, fert[src])
+    alive_out = write_rows(alive2, tgt, True)
+    parent = write_rows(parent, tgt, False)
+    tag = write_rows(state.tag, tgt, child_tag)
 
     out = ParticleState(pos=pos, vel=vel, acc=accf, w=w, age=age,
                         life=lifef, alive=alive_out, parent=parent, tag=tag)

@@ -1,0 +1,256 @@
+"""Packed-state frame engine: the sim loop of emitter scenes.
+
+Counterpart of ``particlesystem_tpu/runtime/engine.py``.  A frame is
+spawn-row generation (``models/emitter.spawn_fields``), the physics kernel
+(``ops/physics_kernel.physics_step``: CUDA on a card, the plain version on
+the CPU), and the allocator's bookkeeping and spawn write, with no host
+synchronisation: ``cursor``, ``n_free``, ``free_list`` and ``accum`` stay
+device tensors, and only the frame index, which is deterministic, lives on
+the host.
+
+State is per-field float32 tensors: ``packed8`` (x, y, z, vx, vy, vz, age,
+life; dead rows frozen) or ``slim`` (x, y, z, vx, vy, vz, death_frame;
+liveness ``frame < death``, expired rows keep integrating until respawn).
+
+Allocation policies (``alloc=``):
+
+* ``"exact"`` — dead slots ascending, refreshed every ``refresh_interval``
+  frames by cumsum compaction; ``refresh_interval=1`` reproduces
+  ``models/emitter.step_core``.
+* ``"ring"`` — slots reused in spawn order through a ring cursor and a
+  shadow region of one padded budget.
+* ``"strided"`` — the cursor advances by the whole padded budget ``W`` each
+  frame; needs ``slots % W == 0``.  The spawn write rides the physics
+  kernel's window, so a frame is one kernel launch.
+* ``"select"`` — ``strided`` over ``(slots/W, W)`` views of the same flat
+  buffers (the JAX package's 2-D layout, kept so states carry across); the
+  kernel sees the flat buffers.
+
+Every (alloc, layout) pair runs through the kernel on the card, except
+that ``slim`` needs a ring-type allocator.  :meth:`PackedEngine.step`
+consumes its input state: on a card the kernel updates the fields in
+place (JAX's engine donates them).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.config import EmitterSceneConfig
+from ..models import emitter as em
+from ..ops import fused_step as fs
+from ..ops.neighbor import as_f32
+from ..ops.physics_kernel import physics_step
+from ..utils.device import resolve_device
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass
+class EngineState:
+    fields: Tuple[torch.Tensor, ...]  # n_fields x (N [+ shadow],) float32
+    accum: torch.Tensor      # (n_emitters,) float32 fractional spawn credit
+    free_list: torch.Tensor  # (L,) int32 dead slots, padded with N (exact)
+    cursor: torch.Tensor     # 0-dim int32: consumed entries / ring position
+    n_free: torch.Tensor     # 0-dim int32: valid free-list entries
+    frame: int
+
+
+class PackedEngine:
+    """Frame loop over per-field SoA state on ``device`` (default: the
+    card; ``device="cpu"`` runs the plain versions)."""
+
+    def __init__(self, cfg: EmitterSceneConfig, refresh_interval: int = 1,
+                 free_list_size: Optional[int] = None, alloc: str = "exact",
+                 layout: str = "packed8", device="cuda"):
+        if alloc not in ("exact", "ring", "strided", "select"):
+            raise ValueError(f"unknown alloc policy {alloc!r}")
+        if layout not in ("packed8", "slim"):
+            raise ValueError(f"unknown layout {layout!r}")
+        if layout == "slim" and alloc == "exact":
+            raise ValueError("layout='slim' requires alloc='ring'/'strided'/"
+                             "'select'")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.alloc = alloc
+        self.layout = layout
+        self.n_fields = 7 if layout == "slim" else 8
+        self.refresh_interval = int(refresh_interval)
+        budget = cfg.max_spawn_per_step * self.refresh_interval
+        self.free_list_size = int(free_list_size or max(1024, 4 * budget))
+        # ring mode: shadow region sized to the (padded) spawn budget
+        self.spawn_width = _round_up(cfg.max_spawn_per_step, 1024)
+        self.shadow = self.spawn_width if alloc == "ring" else 0
+        if alloc in ("strided", "select") and cfg.slots % self.spawn_width:
+            raise ValueError(
+                f"alloc={alloc!r} needs slots ({cfg.slots}) divisible by "
+                f"the padded spawn budget ({self.spawn_width}); round the "
+                f"capacity or use alloc='ring'")
+        self.total = cfg.slots + self.shadow
+        self.b_rows = (cfg.slots // self.spawn_width if alloc == "select"
+                       else None)
+        self.field_shape = ((self.b_rows, self.spawn_width)
+                            if alloc == "select" else (self.total,))
+        self._table = em.SpawnTable(cfg, self.device)
+
+    # ------------------------------------------------------------------
+    def init(self, fields: Optional[Sequence] = None) -> EngineState:
+        """Initial state from ``fields`` (tensors or arrays, copied to the
+        engine's device; all slots dead when None).  ``slim`` accepts
+        packed8 fields and converts (age, life) to death frames; ``select``
+        accepts flat or ``(slots/W, W)`` fields; ``ring`` pads the shadow."""
+        n = self.cfg.slots
+        dev = self.device
+        if fields is None:
+            fields = tuple(torch.zeros((n,), device=dev)
+                           for _ in range(self.n_fields))
+        fields = tuple(torch.as_tensor(f, dtype=torch.float32, device=dev)
+                       for f in fields)
+        if self.layout == "slim" and len(fields) == 8:
+            # packed8 integrates a row while age <= life, i.e.
+            # floor((life-age)/dt) + 1 more frames from here (boundary
+            # inclusive: an age == life row is still alive); dead -> 0
+            x, y, z, vx, vy, vz, age, life = fields
+            alive = (age <= life) & (life > 0)
+            steps = torch.floor((life - age) / as_f32(self.cfg.dt)) + 1.0
+            fields = (x, y, z, vx, vy, vz, torch.where(alive, steps, 0.0))
+        if len(fields) != self.n_fields:
+            raise ValueError(f"{len(fields)} fields given, the {self.layout}"
+                             f" layout has {self.n_fields}")
+        if self.alloc == "select":
+            fields = tuple(f.reshape(self.field_shape) for f in fields)
+        elif fields[0].shape[0] == n and self.shadow:
+            pad = torch.zeros((self.shadow,), device=dev)
+            fields = tuple(torch.cat([f, pad]) for f in fields)
+        # own contiguous copies: step() updates them in place on a card
+        fields = tuple(f.clone(memory_format=torch.contiguous_format)
+                       for f in fields)
+        if fields[0].shape != self.field_shape:
+            raise ValueError(f"fields of shape {tuple(fields[0].shape)}, "
+                             f"expected {self.field_shape}")
+        if self.layout == "slim" or self.alloc in ("strided", "select"):
+            fl = torch.zeros((1,), dtype=torch.int32, device=dev)
+            n_free = torch.zeros((), dtype=torch.int32, device=dev)
+        else:
+            fl, n_free = fs.refresh_free_list(fields, self.free_list_size)
+        return EngineState(
+            fields=fields,
+            accum=torch.zeros((max(1, len(self.cfg.emitters)),), device=dev),
+            free_list=fl, n_free=n_free,
+            cursor=torch.zeros((), dtype=torch.int32, device=dev), frame=0)
+
+    # ------------------------------------------------------------------
+    def _padded(self, rows, valid):
+        """Spawn rows as one (n_fields, W) tensor and valid as (W,),
+        zero-padded to the spawn width."""
+        rows = torch.stack(rows)
+        pad = self.spawn_width - rows.shape[1]
+        if pad:
+            rows = torch.cat([rows, rows.new_zeros((rows.shape[0], pad))], 1)
+            valid = torch.cat([valid, valid.new_zeros((pad,))])
+        return rows, valid
+
+    def _frame(self, s: EngineState, salt: int = 0) -> EngineState:
+        cfg = self.cfg
+        spawn, accum = em.spawn_fields(cfg, s.frame, s.accum, salt,
+                                       table=self._table)
+        if self.layout == "slim":
+            rows = fs.pack_spawn_rows_slim(spawn, s.frame, cfg.dt)
+        else:
+            rows = fs.pack_spawn_rows(spawn)
+        free_list, n_free, cursor = s.free_list, s.n_free, s.cursor
+
+        if self.alloc in ("strided", "select"):
+            # physics and the spawn window in one launch; the cursor
+            # advances here, on the device
+            window = (*self._padded(rows, spawn.valid), cursor)
+            flat = physics_step(tuple(f.view(-1) for f in s.fields), cfg,
+                                window)
+            fields = tuple(f.view(self.field_shape) for f in flat)
+            cursor = torch.remainder(cursor + self.spawn_width, cfg.slots)
+        elif self.alloc == "ring":
+            fields = physics_step(s.fields, cfg)
+            prow, valid = self._padded(rows, spawn.valid)
+            fields, cursor = fs.ring_spawn(fields, tuple(prow), valid,
+                                           cursor, cfg.slots)
+        else:
+            fields = physics_step(s.fields, cfg)
+            if s.frame % self.refresh_interval == 0:
+                free_list, n_free = fs.refresh_free_list(
+                    fields, self.free_list_size)
+                cursor = torch.zeros_like(cursor)
+            fields, cursor = fs.spawn_exact(fields, rows, spawn.valid,
+                                            free_list, cursor, n_free)
+
+        return EngineState(fields=tuple(fields), accum=accum,
+                           free_list=free_list, cursor=cursor, n_free=n_free,
+                           frame=s.frame + 1)
+
+    # ------------------------------------------------------------------
+    def step(self, s: EngineState) -> EngineState:
+        """One frame; consumes ``s`` (its fields may be updated in place)."""
+        return self._frame(s)
+
+    def step_many(self, s: EngineState, k: int) -> EngineState:
+        """``k`` frames queued back to back, with no host synchronisation."""
+        for _ in range(k):
+            s = self._frame(s)
+        return s
+
+    def flat_fields(self, s: EngineState) -> Tuple[torch.Tensor, ...]:
+        """Per-field ``(slots,)`` views of the live region: drops the ring
+        shadow and flattens the select layout (slot ``i`` is element
+        ``(i // W, i % W)``, so flattening keeps slot order)."""
+        if self.alloc == "select":
+            return tuple(f.reshape(-1) for f in s.fields)
+        return tuple(f[: self.cfg.slots] for f in s.fields)
+
+    def alive_count(self, s: EngineState) -> torch.Tensor:
+        """Alive slots, as a 0-dim device tensor."""
+        if self.layout == "slim":
+            death = self._live_region(s.fields[6])
+            return fs.alive_mask_slim(death, s.frame).sum()
+        age = self._live_region(s.fields[6])
+        life = self._live_region(s.fields[7])
+        return ((age <= life) & (life > 0)).sum()
+
+    def _live_region(self, f: torch.Tensor) -> torch.Tensor:
+        """The real slots of one field, in native shape (no flatten)."""
+        return f if self.alloc == "select" else f[: self.cfg.slots]
+
+
+def engine_state_from_numpy(leaves: Sequence, engine: PackedEngine
+                            ) -> EngineState:
+    """An :class:`EngineState` on ``engine``'s device from the leaves of a
+    JAX-package ``EngineState`` taken with ``np.asarray``, in its field
+    order: the ``n_fields`` field arrays (native shape), then accum,
+    free_list, cursor, n_free, frame."""
+    nf = engine.n_fields
+    if len(leaves) != nf + 5:
+        raise ValueError(f"{len(leaves)} leaves, expected {nf + 5}")
+    dev = engine.device
+
+    def t(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    accum, free_list, cursor, n_free, frame = leaves[nf:]
+    return EngineState(
+        fields=tuple(t(a, torch.float32) for a in leaves[:nf]),
+        accum=t(accum, torch.float32), free_list=t(free_list, torch.int32),
+        cursor=t(cursor, torch.int32).reshape(()),
+        n_free=t(n_free, torch.int32).reshape(()), frame=int(frame))
+
+
+def engine_state_to_numpy(state: EngineState) -> list:
+    """Inverse of :func:`engine_state_from_numpy`: the leaves as numpy
+    arrays, in the JAX package's order (frame as a 0-dim int32)."""
+    arr = lambda x: x.detach().cpu().numpy()
+    return ([arr(f) for f in state.fields]
+            + [arr(state.accum), arr(state.free_list), arr(state.cursor),
+               arr(state.n_free), np.asarray(state.frame, np.int32)])

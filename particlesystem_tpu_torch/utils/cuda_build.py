@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 Every ``*.cu`` file under ``csrc/`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, bound with
-``ctypes``.  The library lands in ``_build/`` inside the package, named by
-a hash of the sources and flags, so the first call after a change builds
-it and later calls (and processes) reuse it.  Nothing is built or loaded
-when the module is imported.
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into one shared library with a plain C interface,
+bound with ``ctypes``.  The library lands in ``_build/`` inside the
+package, named by a hash of the sources and flags, so the first call after
+a change builds it and later calls (and processes) reuse it.  Nothing is
+built or loaded when the module is imported.
 """
 
 from __future__ import annotations
@@ -22,8 +23,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH, "-shared")
 
 _P = ctypes.c_void_p
 
@@ -41,7 +44,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -55,17 +58,32 @@ def build() -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [(src, proc, proc.communicate()[0])
+            for src, proc in zip(sources, procs)]
+    link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    for src, proc, out in logs:
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} "
+                               f"({proc.returncode}):\n{out}")
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}\n{link.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
-    return lib, seconds, proc.stdout + proc.stderr
+    return lib, seconds, "".join(out for _, _, out in logs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,5 +94,10 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                    ctypes.c_float, _P, ctypes.c_longlong, _P, _P]
+    fn.restype = ctypes.c_int
+    fn = lib.ps_physics_step
+    fn.argtypes = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, _P,
+                              ctypes.c_int, ctypes.c_int, _P, _P,
+                              ctypes.c_int, _P, _P]
     fn.restype = ctypes.c_int
     return lib

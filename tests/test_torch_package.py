@@ -74,6 +74,9 @@ CONFIG_CASES = [
     lambda m: m.EmitterSceneConfig(
         emitters=(m.Emitter(rate=5000.0), m.Emitter(pos=(1.0, 2.0, 3.0))),
         planes=(m.PlaneCollider(),), spheres=(m.SphereCollider(),)),
+    lambda m: m.Emitter(),
+    lambda m: m.PlaneCollider(),
+    lambda m: m.SphereCollider(),
 ]
 
 
