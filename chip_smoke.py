@@ -4,14 +4,18 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``particlesystem_tpu_torch/csrc`` and
-drives its two main paths: the n-body simulation,
+drives its three main paths: the n-body simulation,
 ``NBodySimulation(NBodyConfig(), device="cuda").run()`` at the reference's
-size (1,048,576 particles, 16^3 grid, 2,097,152 slots), and the emitter
+size (1,048,576 particles, 16^3 grid, 2,097,152 slots), the emitter
 engine, ``ParticleSystem(capacity=10_485_760, alloc="select")`` with the
-bench scene (BASELINE config 5, ``bench.py:44-62``).  Before each, it checks
-the path's kernel against its plain PyTorch version and the port on the
-card against the port on the CPU.  Imports nothing of JAX: the machine with
-the card need not have it.
+bench scene (BASELINE config 5, ``bench.py:44-62``), and the tools
+(``python -m particlesystem_tpu_torch.tools.probe_alu_ops`` and
+``...probe_two_shapes``).  Before each, it checks the path's kernel against
+its plain PyTorch version and the port on the card against the port on the
+CPU.  Then it holds the dense neighbor pass against the kernel's on a
+full-width frame and drives validate, checkpoint, profile_frame and the
+readback ring.  Imports nothing of JAX: the machine with the card need not
+have it.
 
 Phases (any failure raises and exits non-zero):
 
@@ -44,7 +48,31 @@ Phases (any failure raises and exits non-zero):
    select/slim): ms/frame over ``step_many(64)`` and ``step_many(512)``,
    particle-steps/s, launches, peak memory, kernels per frame from
    ``torch.profiler``; then each kernel variant vs the plain version timed
-   at both sizes (plain, kernel, kernel, plain) beside its bound.
+   at both sizes (plain, kernel, kernel, plain) beside its bound;
+8. the probe kernels vs their plain versions on the card: every variant of
+   ``probe_alu_ops`` at ``k = 8`` on the (512, 1024) tile (bit for bit;
+   ``rsqrt`` within 2e-6 relative) and ``probe_affine`` at widths 512, 768
+   and 1024 (bit for bit); then the tools path, both tools' ``main()``: the
+   per-variant table at ``k = 64`` and ``192``, the SASS opcodes that
+   survived in the built kernels (``cuobjdump -sass``), and ``SAFE``; from
+   the table, what the pair kernel's cell-delta test costs on the card and
+   a second reckoning of phase 4's whole-frame bound; then each kernel's
+   time beside its plain version, its bound and, for
+   ``probe_affine``, the one PyTorch call that computes it;
+9. the dense pass on the card: from the state after phase 4's 20 frames,
+   one full-width frame through ``impl="dense"`` and through
+   ``impl="blocks"``: every stat and the alive, parent and tag columns
+   equal, ``acc`` within 1e-5 of max(1, max|acc|); the dense frame's time,
+   list width and peak memory;
+10. validate, checkpoint, profile_frame, readback:
+    ``NBodySimulation.validate(frames=2)`` at 16,384 particles in a 4^3 grid
+    (the full config's 256 particles a cell; the numpy oracle walks every
+    particle in Python); ``save`` after frame 10 of a full-width run,
+    ``load`` into a fresh simulation, 5 more frames on both, bit-identical;
+    ``profile_frame()`` at full width; ``ParticleSystem`` at 10,485,760
+    slots with ``enable_readback(depth=3)``: 60 frames with every popped
+    frame compared with ``packed()`` of its frame, then 60 frames timed
+    without readback and 60 with a consumer thread draining the ring.
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -118,18 +146,30 @@ def roofline_ms(n_bytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _wrappers():
+    """{kernel name: the wrapper that counts its launches}."""
+    from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
+    from particlesystem_tpu_torch.ops import physics_kernel as pk
+    from particlesystem_tpu_torch.tools import probe_alu_ops, probe_two_shapes
+    return dict(cluster_pair=nbk.cluster_pair_cuda,
+                physics_step=pk.physics_step_cuda,
+                probe_alu_ops=probe_alu_ops.probe_layers_cuda,
+                probe_affine=probe_two_shapes.probe_affine_cuda)
+
+
 def reset_launches():
-    from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
-    from particlesystem_tpu_torch.ops import physics_kernel as pk
-    nbk.cluster_pair_cuda.launches = 0
-    pk.physics_step_cuda.launches = 0
+    for wrapper in _wrappers().values():
+        wrapper.launches = 0
 
 
-def launches():
-    from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
-    from particlesystem_tpu_torch.ops import physics_kernel as pk
-    return dict(cluster_pair=nbk.cluster_pair_cuda.launches,
-                physics_step=pk.physics_step_cuda.launches)
+def launches(**expected):
+    """The launch counts since :func:`reset_launches`.  With ``expected``
+    ({kernel: count}, 0 for a kernel not named), asserts them."""
+    counts = {name: w.launches for name, w in _wrappers().items()}
+    if expected:
+        want = {name: expected.get(name, 0) for name in counts}
+        assert counts == want, f"kernel launches {counts}, expected {want}"
+    return counts
 
 
 def frame_inputs(cfg, state, **tiles):
@@ -302,16 +342,13 @@ def phase_main_path(dev):
     sim.run(MAIN_ITERS, verbose=True)
     end.record()
     torch.cuda.synchronize()
-    counts = launches()
-    n_launch = counts["cluster_pair"]
+    n_launch = launches(cluster_pair=2 * MAIN_ITERS)["cluster_pair"]
     ms_frame = start.elapsed_time(end) / MAIN_ITERS
     peak = torch.cuda.max_memory_allocated()
 
     st = sim.state
     alive = st.alive
     n_alive = int(alive.sum())
-    assert counts == dict(cluster_pair=2 * MAIN_ITERS, physics_step=0), \
-        f"kernel launches {counts}"
     assert sim.n_degraded_frames == 0 and int(
         sim.last_stats.n_listed_dropped) == 0, "chunks dropped"
     assert n_alive > 0, "nothing alive"
@@ -359,9 +396,10 @@ def phase_main_path(dev):
         print(f"phase 4: {what}: {cand} candidate pairs, {inside} inside "
               f"the stencil, {flops} flops, {nbytes} bytes; bound "
               f"{t:.4f} ms ({by})")
-    return dict(launches=n_launch, err=err, ms=min(kern_ms, kern_ms2),
-                plain_ms=min(plain_ms, plain_ms2), bound_ms=sub_bound,
-                bound_by=sub_by)
+    return sim, dict(launches=n_launch, err=err, ms=min(kern_ms, kern_ms2),
+                     plain_ms=min(plain_ms, plain_ms2), bound_ms=sub_bound,
+                     bound_by=sub_by, candidates=full[0], frame_ms=full_ms,
+                     frame_bound_ms=full_bound)
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +425,24 @@ def bench_scene(capacity: int):
         spheres=(SphereCollider(center=(2.0, 3.0, 0.0), radius=1.5,
                                 restitution=0.4, friction=0.1),),
         seed=1)
+
+
+def bench_system(dev):
+    """The bench scene through ``ParticleSystem`` at 10,485,760 slots."""
+    from particlesystem_tpu_torch.api import ParticleSystem
+    return (ParticleSystem(capacity=EMIT_SLOTS, dt=1.0 / 60.0,
+                           gravity=(0.0, -9.8, 0.0), wind=(2.0, 0.0, -0.5),
+                           drag=0.2, seed=1, alloc="select", device=dev)
+            .add_emitter(pos=(0.0, 1.0, 0.0), direction=(0.0, 1.0, 0.0),
+                         speed=10.0, rate=60_000.0, life_min=20.0,
+                         life_max=40.0)
+            .add_emitter(pos=(5.0, 1.0, 0.0), direction=(-0.2, 1.0, 0.1),
+                         speed=8.0, rate=40_000.0, life_min=20.0,
+                         life_max=40.0)
+            .add_plane(point=(0, 0, 0), normal=(0, 1, 0), restitution=0.5,
+                       friction=0.2)
+            .add_sphere(center=(2.0, 3.0, 0.0), radius=1.5, restitution=0.4,
+                        friction=0.1))
 
 
 def undamped_scene(capacity: int):
@@ -549,8 +605,7 @@ def phase_engine_card_vs_cpu(dev):
                 assert (err <= TRAJ_TOL + TRAJ_TOL * np.abs(y)).all(), \
                     f"{alloc}/{layout} frame {frame} field {i}: {err.max()}"
                 worst = max(worst, float(err.max()))
-        assert launches()["physics_step"] == 25, \
-            f"{alloc}/{layout}: the card's frames bypassed the kernel"
+        launches(physics_step=25)
         n_alive = int(card.alive_count(sc))
         assert n_alive == int(host.alive_count(sh)) > 0
         print(f"phase 6: {alloc}/{layout} refresh {refresh}: 25 frames card "
@@ -617,26 +672,13 @@ def graph_ms(fn, reps: int) -> float:
 
 def phase_emitter_main_path(dev):
     import torch
-    from particlesystem_tpu_torch.api import ParticleSystem
     from particlesystem_tpu_torch.ops import physics_kernel as pk
     from particlesystem_tpu_torch.runtime.engine import PackedEngine
 
     # the main path: the scene built through ParticleSystem, full width
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    ps = (ParticleSystem(capacity=EMIT_SLOTS, dt=1.0 / 60.0,
-                         gravity=(0.0, -9.8, 0.0), wind=(2.0, 0.0, -0.5),
-                         drag=0.2, seed=1, alloc="select", device=dev)
-          .add_emitter(pos=(0.0, 1.0, 0.0), direction=(0.0, 1.0, 0.0),
-                       speed=10.0, rate=60_000.0, life_min=20.0,
-                       life_max=40.0)
-          .add_emitter(pos=(5.0, 1.0, 0.0), direction=(-0.2, 1.0, 0.1),
-                       speed=8.0, rate=40_000.0, life_min=20.0,
-                       life_max=40.0)
-          .add_plane(point=(0, 0, 0), normal=(0, 1, 0), restitution=0.5,
-                     friction=0.2)
-          .add_sphere(center=(2.0, 3.0, 0.0), radius=1.5, restitution=0.4,
-                      friction=0.1))
+    ps = bench_system(dev)
     assert ps.config == bench_scene(EMIT_SLOTS)
     t0 = time.perf_counter()
     ps.step(60)
@@ -648,9 +690,7 @@ def phase_emitter_main_path(dev):
     ps.step(60)
     end.record()
     torch.cuda.synchronize()
-    counts = launches()
-    assert counts == dict(cluster_pair=0, physics_step=120), \
-        f"kernel launches {counts}"
+    counts = launches(physics_step=120)
     n_alive = check_emitter_state(ps._engine, ps._es, "ParticleSystem")
     assert n_alive == ps.alive_count() > 0
     print(f"phase 7: ParticleSystem {EMIT_SLOTS} slots, select/packed8: "
@@ -678,9 +718,7 @@ def phase_emitter_main_path(dev):
                 torch.cuda.synchronize()
                 ms[k] = start.elapsed_time(end) / k
                 frames += k
-            counts = launches()
-            assert counts == dict(cluster_pair=0, physics_step=frames), \
-                f"{alloc}/{layout}: kernel launches {counts}"
+            counts = launches(physics_step=frames)
             n_alive = check_emitter_state(eng, es, f"{n} {alloc}/{layout}")
             assert n_alive == int(eng.alive_count(es)) > 0
             short, long_ = STEP_MANY
@@ -736,6 +774,381 @@ def phase_emitter_main_path(dev):
     return dict(launches=120, **main)
 
 
+# ---------------------------------------------------------------------------
+# the tools: the probe kernels
+# ---------------------------------------------------------------------------
+
+AFFINE_WIDTHS = (512, 768, 1024)
+PROBE_K = 8
+RSQRT_RTOL = 2e-6                  # MUFU.RSQ: 2 ulp
+
+
+def pair_test_cost(table: str, pair: dict) -> None:
+    """A second reckoning of the cluster-pair kernel's bound, from the op
+    costs ``probe_alu_ops`` just measured (``table``, its printed lines)
+    and the whole frame's candidate pairs of phase 4 (``pair``).
+
+    One slot is the time in which the card issues one FP32 operation for
+    every lane at its published peak (67 TFLOP/s = 33.5e12 lanes/s).
+    ``chain16`` issues 16 FFMA + 1 FADD + 2/8 a lane and layer, which gives
+    the slots an FFMA, FADD or FMUL really takes; ``chainmix16`` issues
+    8 FSETP + 4 FFMA + 1 FADD + 2/8 (the SASS printed above), which gives a
+    compare's.  The cell-delta test of every candidate is 3 FADD, 3 FMUL,
+    2 FADD and 1 FSETP (csrc/neighbor_blocks.cu:105-111; the integer
+    ``ng != mg`` goes down another pipe and is not counted).  The bound of
+    phase 4 reckons its 8 float operations at 67 TFLOP/s, as if each were
+    half a fused multiply-add."""
+    import re
+
+    from particlesystem_tpu_torch.tools import probe_alu_ops as pa
+    ns = {m[1]: float(m[2]) for m in re.finditer(
+        r"^(\w+)\s+([\d.]+) ns/layer", table, flags=re.M)}
+    slot_ns = pa.B * pa.CH / pa.FP32_FMA_LANES_PER_S * 1e9
+    arith = ns["chain16"] / slot_ns / 17.25
+    compare = (ns["chainmix16"] / slot_ns - 5.25 * arith) / 8
+    slots = 8 * arith + compare
+    ms = pair["candidates"] * slots / pa.FP32_FMA_LANES_PER_S * 1e3
+    print(f"phase 8: one FP32 operation for every lane of the tile takes "
+          f"{slot_ns:.3f} ns at the published peak; measured: an FFMA, FADD "
+          f"or FMUL {arith:.3f} slots, an FSETP {compare:.3f} slots; the "
+          f"cell-delta test (8 arithmetic operations and a compare) "
+          f"{slots:.2f} slots a candidate, against the 4 that 8 flops at "
+          f"67 TFLOP/s allow")
+    print(f"phase 8: cluster_pair whole frame, second reckoning: "
+          f"{pair['candidates']} candidates x {slots:.2f} slots = {ms:.4f} "
+          f"ms, beside the bound of {pair['frame_bound_ms']:.4f} ms and the "
+          f"kernel's {pair['frame_ms']:.3f} ms "
+          f"({ms / pair['frame_ms']:.1%} and "
+          f"{pair['frame_bound_ms'] / pair['frame_ms']:.1%} of it)")
+
+
+def phase_probes(dev, pair):
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    from particlesystem_tpu_torch.tools import probe_alu_ops as pa
+    from particlesystem_tpu_torch.tools import probe_two_shapes as pt
+
+    # every variant against the plain version, on the tools' own tile
+    x = pa.tile(dev)
+    worst_alu = 0.0
+    for v in pa.VARIANTS:
+        got = pa.probe_layers_cuda(v, PROBE_K, x)
+        want = pa.probe_layers_plain(v, PROBE_K, x)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), f"{v}: kernel result not finite"
+        err = (got - want).abs().max().item()
+        if v == "rsqrt":
+            rel = ((got - want).abs() / want.abs()).max().item()
+            assert rel <= RSQRT_RTOL, f"rsqrt: relative error {rel}"
+            how = f"max relative err {rel:.3e} (limit {RSQRT_RTOL})"
+        else:
+            assert torch.equal(got, want), \
+                f"{v}: {int((got != want).sum())} lanes differ, max {err}"
+            how = "kernel == plain bit for bit"
+        worst_alu = max(worst_alu, err)
+        print(f"phase 8: probe_alu_ops {v} k={PROBE_K} on ({pa.B}, {pa.CH}) "
+              f"x {pa.REPS} repeats: {how}")
+    for w in AFFINE_WIDTHS:
+        xa = torch.tensor(np.random.default_rng(w).uniform(
+            -4.0, 4.0, (pt.ROWS, w)).astype(np.float32), device=dev)
+        got = pt.probe_affine_cuda(xa)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pt.probe_affine_plain(xa)), \
+            f"probe_affine width {w} differs from the plain version"
+        print(f"phase 8: probe_affine ({pt.ROWS}, {w}): kernel == plain bit "
+              f"for bit")
+
+    # the tools path: both main()s, launches counted from here
+    reset_launches()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = pa.main([])
+    table = text.getvalue()
+    print("".join(f"phase 8: {line}\n" for line in table.splitlines()),
+          end="")
+    assert rc == 0 and "chainmix16" in table, "probe_alu_ops.main failed"
+    rc = pt.main([])
+    assert rc == 0, "probe_two_shapes.main failed"
+    counts = launches(probe_alu_ops=counts_alu_main(pa),
+                      probe_affine=2 * pt.FRAMES)
+    if shutil.which("cuobjdump") or shutil.which("nvcc"):
+        for v, ops in pa.sass_counts().items():
+            top = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
+            print(f"phase 8: sass {v:10s} "
+                  + " ".join(f"{op}:{n}" for op, n in top))
+    else:
+        print("phase 8: sass not read: no cuobjdump on this machine")
+    pair_test_cost(table, pair)
+
+    # probe_alu_ops: fma at k = K2, beside the plain version doing the same
+    # work (the tile repeated REPS times) and on one tile
+    kern = lambda: pa.probe_layers_cuda("fma", pa.K2, x)
+    xr = x.repeat(pa.REPS, 1)
+    p1 = cuda_ms(lambda: pa.probe_layers_plain("fma", pa.K2, xr), 1)
+    k1 = cuda_ms(kern, 20)
+    k2 = cuda_ms(kern, 20)
+    p2 = cuda_ms(lambda: pa.probe_layers_plain("fma", pa.K2, xr), 1)
+    p_tile = cuda_ms(lambda: pa.probe_layers_plain("fma", pa.K2, x), 2)
+    del xr
+    lanes = pa.B * pa.CH * pa.REPS * pa.K2
+    alu_bound, alu_by = roofline_ms(8 * pa.B * pa.CH, 2 * lanes)
+    print(f"phase 8: probe_alu_ops fma k={pa.K2}: kernel {k1:.4f} / {k2:.4f} "
+          f"ms, plain on {pa.REPS} repeats {p1:.2f} / {p2:.2f} ms (plain, "
+          f"kernel, kernel, plain), plain on one tile {p_tile:.3f} ms; "
+          f"{lanes} FMA lanes: bound {alu_bound:.4f} ms ({alu_by}), "
+          f"{alu_bound / min(k1, k2):.1%} of it")
+    alu = dict(launches=counts["probe_alu_ops"], err=worst_alu,
+               ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=alu_bound,
+               bound_by=alu_by)
+
+    # probe_affine at (16, CAP): a launch's latency, not its bytes, is
+    # what it takes
+    xa = torch.ones((pt.ROWS, pt.CAP), dtype=torch.float32, device=dev)
+    one = torch.ones_like(xa)
+    kern = lambda: pt.probe_affine_cuda(xa)
+    plain = lambda: pt.probe_affine_plain(xa)
+    lib = lambda: torch.add(one, xa, alpha=2)
+    assert torch.equal(lib(), kern())
+    p1, l1 = cuda_ms(plain, 200), cuda_ms(lib, 200)
+    k1 = cuda_ms(kern, 200)
+    k2 = cuda_ms(kern, 200)
+    p2, l2 = cuda_ms(plain, 200), cuda_ms(lib, 200)
+    g_kern, g_lib = graph_ms(kern, 50), graph_ms(lib, 50)
+    aff_bound, aff_by = roofline_ms(8 * xa.numel(), 2 * xa.numel())
+    print(f"phase 8: probe_affine ({pt.ROWS}, {pt.CAP}): kernel {k1:.5f} / "
+          f"{k2:.5f} ms, plain {p1:.5f} / {p2:.5f} ms, torch.add(one, x, "
+          f"alpha=2) {l1:.5f} / {l2:.5f} ms; in a CUDA graph kernel "
+          f"{g_kern:.5f} ms, torch.add {g_lib:.5f} ms; {8 * xa.numel()} "
+          f"bytes: bound {aff_bound:.6f} ms ({aff_by})")
+    affine = dict(launches=counts["probe_affine"], err=0.0, ms=min(k1, k2),
+                  plain_ms=min(p1, p2), bound_ms=aff_bound, bound_by=aff_by,
+                  library_ms=min(l1, l2))
+    return alu, affine
+
+
+def counts_alu_main(pa, launches_per_timing: int = 10, rounds: int = 5):
+    """Launches ``probe_alu_ops.main`` makes: each variant at two depths,
+    one warm-up and ``rounds`` x ``launches_per_timing`` timed calls."""
+    return len(pa.VARIANTS) * 2 * (1 + rounds * launches_per_timing)
+
+
+# ---------------------------------------------------------------------------
+# the dense pass, validate, checkpoint, profile_frame, readback
+# ---------------------------------------------------------------------------
+
+
+def phase_dense_vs_blocks(sim):
+    """One frame from ``sim``'s state (after phase 4) through both passes."""
+    import torch
+    from particlesystem_tpu_torch.models import nbody
+
+    cfg, frame, active = sim.cfg, sim.frame, sim._active
+    width = sim._pick_width(int(sim.last_stats.max_cell_occupancy))
+    reset_launches()
+    blocks, bst = nbody.step(sim.state, frame, cfg, "blocks", active)
+    launches(cluster_pair=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dense_step = lambda: nbody.step(sim.state, frame, cfg, "dense", active,
+                                    width)
+    dense, dst = dense_step()
+    launches(cluster_pair=1)             # the dense pass launches no kernel
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    # as in the JAX package, the blocks pass counts a chunk's rows before
+    # the overflow kill and the dense pass after it: equal without overflow
+    assert int(bst.n_overflow_kills) == 0, "overflow at the reference size"
+    for k, v in vars(bst).items():
+        assert int(getattr(dst, k)) == int(v), \
+            f"dense vs blocks: {k} {int(getattr(dst, k))} != {int(v)}"
+    assert int(dst.n_listed_dropped) == 0, "the dense lists dropped rows"
+    for f in ("alive", "parent", "tag"):
+        assert torch.equal(getattr(dense, f), getattr(blocks, f)), \
+            f"dense vs blocks: {f} differs"
+    scale = max(1.0, blocks.acc.abs().max().item())
+    err = (dense.acc - blocks.acc).abs().max().item()
+    assert err / scale <= 1e-5, \
+        f"dense vs blocks: acc error {err} exceeds 1e-5 of {scale}"
+    dense_ms = cuda_ms(dense_step, 2)
+    blocks_ms = cuda_ms(lambda: nbody.step(sim.state, frame, cfg, "blocks",
+                                           active), 5)
+    print(f"phase 9: frame {frame} at {cfg.n_fill} particles, active prefix "
+          f"{active or cfg.slots}: dense == blocks in every stat "
+          f"(alive {int(dst.n_alive)}, collision kills "
+          f"{int(dst.n_collision_kills)}, survivals {int(dst.n_survivals)}, "
+          f"spawned {int(dst.n_spawned)}, max cell "
+          f"{int(dst.max_cell_occupancy)}) and in alive, parent and tag; acc "
+          f"max abs err {err:.3e} (limit 1e-5 of {scale:.3f}); dense frame "
+          f"{dense_ms:.1f} ms at list_width {width or cfg.cell_capacity}, "
+          f"blocks frame {blocks_ms:.3f} ms; dense peak memory {peak} bytes")
+
+
+VALIDATE_FILL, VALIDATE_GRID = 16384, 4
+READBACK_FRAMES = 60
+
+
+def phase_validate_checkpoint_profile(sim, dev):
+    import os
+    import tempfile
+
+    import torch
+    from particlesystem_tpu_torch import GridSpec, NBodyConfig
+    from particlesystem_tpu_torch.api import NBodySimulation
+    from particlesystem_tpu_torch.core.state import FIELDS
+    from particlesystem_tpu_torch.models import nbody
+
+    # validate: the card against the numpy oracle, events exact
+    small = NBodySimulation(NBodyConfig(
+        n_fill=VALIDATE_FILL, grid=GridSpec(grid_dim=VALIDATE_GRID)),
+        device=dev)
+    t0 = time.perf_counter()
+    out = small.validate(frames=2)
+    val_s = time.perf_counter() - t0
+    assert out["events_match"] is True, f"validate: {out}"
+    assert out["max_position_deviation"] < 1e-2, f"validate: {out}"
+    assert small.frame == 0
+    print(f"phase 10: validate(frames=2) at {VALIDATE_FILL} particles, "
+          f"{VALIDATE_GRID}^3 grid: {out}, {val_s:.1f} s")
+
+    # checkpoint: save at frame 10, resume in a fresh simulation
+    cfg = sim.cfg
+    a = NBodySimulation(cfg, device=dev)
+    a.run(MAIN_ITERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frame10.npz")
+        t0 = time.perf_counter()
+        a.save(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        b = NBodySimulation(cfg, device=dev)
+        t0 = time.perf_counter()
+        b.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    assert b.frame == MAIN_ITERS and b._active == 0
+    a.run(5)
+    b.run(5)
+    assert a.frame == b.frame == MAIN_ITERS + 5
+    for k, v in vars(a.last_stats).items():
+        assert int(v) == int(getattr(b.last_stats, k)), f"resumed run: {k}"
+    # the resumed run re-buckets after its first batch: compare the rows
+    # in one order (alive rows first, slot order kept)
+    sa, sb = nbody.compact_state(a.state), nbody.compact_state(b.state)
+    for f in FIELDS:
+        assert torch.equal(getattr(sa, f), getattr(sb, f)), \
+            f"resumed run: {f} differs"
+    print(f"phase 10: checkpoint of {cfg.slots} slots at frame "
+          f"{MAIN_ITERS}: {size} bytes, save {save_s:.3f} s, load "
+          f"{load_s:.3f} s; 5 more frames on both: state and stats bit "
+          f"identical (alive {int(a.last_stats.n_alive)})")
+    del a, b, sa, sb
+
+    # profile_frame on the main path's simulation (active prefix engaged)
+    before = {f: getattr(sim.state, f).clone() for f in FIELDS}
+    frame = sim.frame
+    stages = sim.profile_frame()
+    assert sim.frame == frame
+    for f in FIELDS:
+        assert torch.equal(getattr(sim.state, f), before[f]), \
+            f"profile_frame changed {f}"
+    assert list(stages) == ["rng_fields", "cell_ids", "build_grid",
+                            "calc_forces", "unsort", "lifecycle",
+                            "full_frame"], list(stages)
+    parts = sum(ms for k, ms in stages.items() if k != "full_frame")
+    print(f"phase 10: profile_frame at frame {frame}, active prefix "
+          f"{sim._active or cfg.slots}: "
+          + ", ".join(f"{k} {ms:.3f}" for k, ms in stages.items())
+          + f" ms; stages sum {parts:.3f} ms beside full_frame "
+          f"{stages['full_frame']:.3f} ms")
+
+
+def phase_readback(dev):
+    import threading
+
+    import torch
+    from particlesystem_tpu_torch.utils.native import has_native
+
+    assert has_native(), "the native ring was not built"
+    shape = (8, EMIT_SLOTS)
+    frame_bytes = 4 * shape[0] * shape[1]
+    n = READBACK_FRAMES
+
+    # every frame delivered and equal to packed() of its frame: the
+    # consumer pops after each step, so nothing is dropped
+    ps = bench_system(dev)
+    rb = ps.enable_readback(depth=3)
+    assert rb.ring.frame_bytes == frame_bytes
+    assert rb.ring._lib is not None, "the ring fell back to the deque"
+    reset_launches()
+    kept, checked = {}, 0
+    for i in range(n):
+        ps.step()
+        kept[i] = ps.packed().clone()
+        got = rb.ring.pop(shape)
+        if i == 0:
+            assert got is None          # frame 0 is still pending
+            continue
+        assert got is not None, f"frame {i - 1} was not in the ring"
+        assert torch.equal(torch.from_numpy(got).to(dev), kept.pop(i - 1)), \
+            f"popped frame {i - 1} differs from packed()"
+        checked += 1
+    launches(physics_step=n)
+    assert (rb.published, rb.dropped) == (n - 1, 0), \
+        (rb.published, rb.dropped)
+    rb.flush()
+    got = rb.ring.pop(shape)
+    assert torch.equal(torch.from_numpy(got).to(dev), kept.pop(n - 1))
+    assert rb.published == n and rb.ring.pop(shape) is None
+    print(f"phase 10: readback at {EMIT_SLOTS} slots, {frame_bytes} bytes a "
+          f"frame: {checked + 1} of {n} frames popped, each equal to "
+          f"packed() of its frame; native ring")
+    del ps, rb, kept, got
+
+    def timed(readback: bool):
+        ps = bench_system(dev)
+        ps.step(8)
+        rb = ps.enable_readback(depth=3) if readback else None
+        stop = threading.Event()
+        popped = [0]
+
+        def consume():
+            while not stop.is_set():
+                if rb.ring.pop(shape) is None:
+                    time.sleep(0.0005)
+                else:
+                    popped[0] += 1
+
+        worker = threading.Thread(target=consume) if readback else None
+        if worker:
+            worker.start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ps.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        if worker:
+            stop.set()
+            worker.join()
+        return ms, rb, popped[0]
+
+    plain_ms, _, _ = timed(False)
+    with_ms, rb, popped = timed(True)
+    assert rb.published + rb.dropped == n - 1, (rb.published, rb.dropped)
+    rb.flush()
+    assert rb.published + rb.dropped == n
+    print(f"phase 10: {n} frames of step(): {plain_ms:.3f} ms/frame without "
+          f"readback, {with_ms:.3f} ms/frame with readback (depth 3) and a "
+          f"consumer thread: published {rb.published}, dropped "
+          f"{rb.dropped}, popped by the consumer {popped}; "
+          f"{frame_bytes / with_ms / 1e6:.2f} GB/s of frames published or "
+          f"dropped")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -756,10 +1169,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     worst = phase_kernel_vs_plain(dev)
     phase_card_vs_cpu(dev)
-    main_path = phase_main_path(dev)
+    sim, main_path = phase_main_path(dev)
     physics_err = phase_physics_vs_plain(dev)
     phase_engine_card_vs_cpu(dev)
     emitter = phase_emitter_main_path(dev)
+    alu, affine = phase_probes(dev, main_path)
+    phase_dense_vs_blocks(sim)
+    phase_validate_checkpoint_profile(sim, dev)
+    del sim
+    phase_readback(dev)
 
     kernels = [{
         "name": "cluster_pair",
@@ -785,6 +1203,30 @@ def main() -> int:
         "bound_ms": emitter["bound_ms"],
         "bound_by": emitter["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "probe_alu_ops",
+        "route": "cuda",
+        "source": "particlesystem_tpu_torch/csrc/probe_alu_ops.cu",
+        "replaces": "tools/probe_vpu_ops.py:60",
+        "launches": alu["launches"],
+        "max_abs_err": alu["err"],
+        "ms": alu["ms"],
+        "plain_ms": alu["plain_ms"],
+        "bound_ms": alu["bound_ms"],
+        "bound_by": alu["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "probe_affine",
+        "route": "cuda",
+        "source": "particlesystem_tpu_torch/csrc/probe_affine.cu",
+        "replaces": "tools/probe_same_pallas_two_sigs.py:43",
+        "launches": affine["launches"],
+        "max_abs_err": affine["err"],
+        "ms": affine["ms"],
+        "plain_ms": affine["plain_ms"],
+        "bound_ms": affine["bound_ms"],
+        "bound_by": affine["bound_by"],
+        "library_ms": affine["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

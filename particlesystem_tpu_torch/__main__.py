@@ -2,7 +2,8 @@
 (``makefile:3-4``):
 
     python -m particlesystem_tpu_torch nbody --particles 1048576 \
-        --grid-dim 16 --iterations 10 --device cuda
+        --grid-dim 16 --iterations 10 --device cuda \
+        [--impl dense] [--validate] [--save run.npz]
     python -m particlesystem_tpu_torch demo --capacity 1000000 --frames 600
 """
 
@@ -17,8 +18,13 @@ def _cmd_nbody(args):
 
     cfg = NBodyConfig(n_fill=args.particles,
                       grid=GridSpec(grid_dim=args.grid_dim))
-    sim = NBodySimulation(cfg, device=args.device)
+    sim = NBodySimulation(cfg, device=args.device, impl=args.impl)
     sim.run(args.iterations, verbose=True, batch=args.batch)
+    if args.validate:
+        print(f"validate: {sim.validate()}")
+    if args.save:
+        sim.save(args.save)
+        print(f"checkpoint written to {args.save}")
     print(sim.timers.report())
 
 
@@ -50,10 +56,18 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda needs a card; cpu runs the "
                         "kernels' plain versions)")
+    p.add_argument("--impl", choices=("blocks", "dense"), default="blocks",
+                   help="neighbor pass: the cluster-pair kernel, or the "
+                        "dense cell-pair pass in plain tensor code")
     p.add_argument("--batch", type=int, default=0,
                    help="frames per host synchronisation (iterations must "
                         "divide by it). 0 = auto: largest divisor of "
                         "--iterations <= 16. 1 = per-frame readbacks")
+    p.add_argument("--save", default="",
+                   help="write a checkpoint here after the run")
+    p.add_argument("--validate", action="store_true",
+                   help="compare the step against the numpy oracle after "
+                        "the run")
     p.set_defaults(fn=_cmd_nbody)
 
     p = sub.add_parser("demo", help="run an emitter demo scene")

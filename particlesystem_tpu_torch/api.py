@@ -16,6 +16,7 @@ frame's statistics.
 
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Optional
 
@@ -25,7 +26,9 @@ import torch
 from .core.config import (Emitter, EmitterSceneConfig, NBodyConfig,
                           PlaneCollider, SphereCollider)
 from .models import nbody
+from .runtime import checkpoint
 from .runtime.engine import EngineState, PackedEngine
+from .runtime.readback import AsyncReadback
 from .utils.device import resolve_device
 from .utils.timers import PhaseTimers
 
@@ -70,6 +73,7 @@ class ParticleSystem:
         self._engine: Optional[PackedEngine] = None
         self._es: Optional[EngineState] = None
         self.timers = PhaseTimers()
+        self._readback: Optional[AsyncReadback] = None
 
     # -- scene construction -------------------------------------------------
     def add_emitter(self, **kw) -> "ParticleSystem":
@@ -111,6 +115,9 @@ class ParticleSystem:
         self._ensure()
         with self.timers.phase("step"):
             self._es = self._engine.step_many(self._es, n)
+        if self._readback is not None:
+            with self.timers.phase("readback"):
+                self._readback.publish(self.packed())
         return self
 
     @property
@@ -155,6 +162,28 @@ class ParticleSystem:
         m = self._mask(p)
         return 1.0 - p[6][m] / p[7][m]
 
+    # -- render-loop readback -------------------------------------------------
+    def enable_readback(self, depth: int = 3) -> AsyncReadback:
+        """Publish :meth:`packed` after every :meth:`step` into a ring of
+        ``depth`` frames that a consumer drains (``.ring.pop``); the step
+        never waits for it."""
+        self._ensure()
+        frame_bytes = self._engine.n_fields * self._engine.cfg.slots * 4
+        self._readback = AsyncReadback(frame_bytes, depth)
+        return self._readback
+
+    # -- persistence ------------------------------------------------------------
+    def save(self, path: str) -> None:
+        self._ensure()
+        checkpoint.save(path, self._es,
+                        meta=checkpoint.config_fingerprint(self.config))
+
+    def load(self, path: str) -> "ParticleSystem":
+        self._ensure()
+        self._es, _ = checkpoint.load(path, self._es,
+                                      expect_config=self.config)
+        return self
+
 
 class NBodySimulation:
     """Initial uniform fill, then frames of ``models/nbody.step`` on
@@ -165,13 +194,25 @@ class NBodySimulation:
     compacted forward (``nbody.compact_state``) and later frames operate on
     ``[0, active)`` only; results are identical to full width, and the
     ``n_tail_alive`` / ``n_spawn_capped`` guards fail loudly if the contract
-    breaks."""
+    breaks.
+
+    ``impl="dense"`` runs the cell-pair pass in plain tensor code (the
+    reference beside the kernel).  With ``adaptive_width`` its cell lists
+    are as wide as the last observed cell occupancy needs
+    (:meth:`_pick_width`); a frame or batch that the narrowed lists
+    truncated is redone at full width, so no degraded frame is kept."""
+
+    BUCKETS = (64, 128, 192, 256, 384, 512, 768, 1024)
 
     def __init__(self, cfg: NBodyConfig = NBodyConfig(), device="cuda",
-                 impl: str = "blocks", active_bucketing: bool = True):
+                 impl: str = "blocks", active_bucketing: bool = True,
+                 adaptive_width: bool = True):
+        if impl not in ("blocks", "dense"):
+            raise ValueError(f"unknown neighbor pass {impl!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.impl = impl
+        self.adaptive_width = adaptive_width and impl == "dense"
         self.active_bucketing = active_bucketing
         self.timers = PhaseTimers()
         with self.timers.phase("fill"):
@@ -179,7 +220,20 @@ class NBodySimulation:
         self.frame = 0
         self.last_stats = None
         self.n_degraded_frames = 0  # frames whose neighbor pass truncated
+        self._width = 0  # 0 = full cell_capacity (always exact)
         self._active = 0  # 0 = full slots
+
+    def _pick_width(self, max_occ: int) -> int:
+        """Bucketized list width with 25% headroom over the last observed
+        max cell occupancy: the reference's per-frame gridmax readback
+        (``particleSystem.cpp:1900``) serves the same purpose.  The dense
+        pass costs O(width^2), so it tracks real occupancy, not the kill
+        cap."""
+        want = int(max_occ * 1.25) + 8
+        for b in self.BUCKETS:
+            if b >= want:
+                return min(b, self.cfg.cell_capacity)
+        return 0  # full capacity
 
     #: active-prefix granularity; see models/nbody.pick_active
     ACTIVE_QUANTUM = nbody.ACTIVE_QUANTUM
@@ -200,9 +254,13 @@ class NBodySimulation:
             # grow: a pure re-slice, containment keeps the prefix invariant
             self._active = want
 
-    def _step(self, frame: int):
-        return nbody.step(self.state, frame, self.cfg, self.impl,
-                          self._active)
+    def _step(self, state, frame: int):
+        return nbody.step(state, frame, self.cfg, self.impl, self._active,
+                          self._width)
+
+    def _adapt_width(self, max_occ: int, dropped: int) -> None:
+        if self.adaptive_width and not dropped:
+            self._width = self._pick_width(max_occ)
 
     def _check_guards(self, where: str, spawn_capped: int, tail_alive: int,
                       dropped: int) -> None:
@@ -219,38 +277,60 @@ class NBodySimulation:
                           f"forces truncated; raise the chunk budget",
                           RuntimeWarning, stacklevel=3)
 
+    def _batch(self, prev, batch: int):
+        """``batch`` frames from ``prev`` with the guards accumulated on the
+        device; returns (state, last stats, the six guard values read in
+        the batch's one host sync)."""
+        state = prev
+        mc = mt = nd = None
+        for i in range(batch):
+            state, stats = self._step(state, self.frame + i)
+            # guards over EVERY frame: spawn capping and drops are
+            # transient, the last frame alone could miss them
+            if mc is None:
+                mc, mt = stats.n_spawn_capped, stats.n_tail_alive
+                nd = stats.n_listed_dropped
+            else:
+                mc = torch.maximum(mc, stats.n_spawn_capped)
+                mt = torch.maximum(mt, stats.n_tail_alive)
+                nd = nd + stats.n_listed_dropped
+        guards = torch.stack([
+            mc, mt, nd, stats.n_alive, stats.max_cell_occupancy,
+            stats.n_spawned]).tolist()
+        return state, stats, guards
+
     def _run_batched(self, num_iterations: int, batch: int, verbose: bool):
         if num_iterations % batch:
             raise ValueError(f"num_iterations {num_iterations} must be a "
                              f"multiple of batch {batch}")
         for _ in range(num_iterations // batch):
             with self.timers.phase("step"):
-                mc = mt = nd = None
-                for i in range(batch):
-                    self.state, stats = self._step(self.frame + i)
-                    # guards over EVERY frame: spawn capping and drops are
-                    # transient, the last frame alone could miss them
-                    if mc is None:
-                        mc, mt = stats.n_spawn_capped, stats.n_tail_alive
-                        nd = stats.n_listed_dropped
-                    else:
-                        mc = torch.maximum(mc, stats.n_spawn_capped)
-                        mt = torch.maximum(mt, stats.n_tail_alive)
-                        nd = nd + stats.n_listed_dropped
-                guards = torch.stack([
-                    mc, mt, nd, stats.n_alive, stats.max_cell_occupancy,
-                    stats.n_spawned]).tolist()  # the batch's one host sync
+                prev = self.state
+                self.state, stats, guards = self._batch(prev, batch)
+                if guards[2] and self._width != 0:
+                    # the adaptive width truncated some frame of the batch:
+                    # redo the whole batch from the saved state at full
+                    # width, which is exact by construction
+                    self._width = 0
+                    self.state, stats, guards = self._batch(prev, batch)
             self.frame += batch
             self.last_stats = stats
             self._check_guards(f"batch ending at frame {self.frame}",
                                guards[0], guards[1], guards[2])
             if self.active_bucketing:
                 self._apply_bucketing(guards[3])
+            self._adapt_width(guards[4], guards[2])
             if verbose:
                 print(f"iter {self.frame}: alive={guards[3]} "
                       f"last_spawned={guards[5]} max_cell={guards[4]} "
-                      f"active={self._active or self.cfg.slots}")
+                      f"active={self._active or self.cfg.slots}"
+                      + self._width_note())
         return self.last_stats
+
+    def _width_note(self) -> str:
+        if self.impl != "dense":
+            return ""
+        return f" width={self._width or self.cfg.cell_capacity}"
 
     def run(self, num_iterations: int = 10, verbose: bool = False,
             batch: int = 0):
@@ -268,17 +348,172 @@ class NBodySimulation:
             return self._run_batched(num_iterations, batch, verbose)
         for _ in range(num_iterations):
             with self.timers.phase("step"):
-                self.state, stats = self._step(self.frame)
+                prev = self.state  # kept so a truncated frame can be redone
+                self.state, stats = self._step(prev, self.frame)
                 s = {k: int(v) for k, v in vars(stats).items()}
+                if s["n_listed_dropped"] and self._width != 0:
+                    # occupancy spiked past the adaptive width: redo this
+                    # frame from the saved state at full width
+                    self._width = 0
+                    self.state, stats = self._step(prev, self.frame)
+                    s = {k: int(v) for k, v in vars(stats).items()}
             self.frame += 1
             self.last_stats = stats
             self._check_guards(f"frame {self.frame}", s["n_spawn_capped"],
                                s["n_tail_alive"], s["n_listed_dropped"])
             if self.active_bucketing:
                 self._apply_bucketing(s["n_alive"])
+            self._adapt_width(s["max_cell_occupancy"], s["n_listed_dropped"])
             if verbose:
                 print(f"iter {self.frame}: alive={s['n_alive']} "
                       f"spawned={s['n_spawned']} "
                       f"max_cell={s['max_cell_occupancy']} "
-                      f"active={self._active or self.cfg.slots}")
+                      f"active={self._active or self.cfg.slots}"
+                      + self._width_note())
         return self.last_stats
+
+    # -- timing ------------------------------------------------------------------
+    def _time_ms(self, fn, reps: int):
+        """(result, median milliseconds) of ``fn()`` over ``reps`` calls,
+        each timed on its own, after one warm-up call: CUDA events on a
+        card, the host clock on the CPU.  The median leaves out a call that
+        paid for something once (an allocation, a busy host)."""
+        out = fn()
+        times = []
+        if self.device.type == "cuda":
+            events = []
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn()
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize(self.device)
+            times = [start.elapsed_time(end) for start, end in events]
+        else:
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                out = fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+        return out, float(np.median(times))
+
+    def profile_frame(self, reps: int = 5) -> dict:
+        """Stage-by-stage timing of one frame at the current state: the
+        structured equivalent of the reference's per-iteration
+        ``total / init_iframe / build_grid / calc_forces`` printout
+        (``particleSystem.cpp:1927``).  Stages:
+
+        * ``rng_fields``  — per-frame random field generation
+        * ``cell_ids``    — torus wrap and cell id assignment
+        * ``build_grid``  — sort by cell and the chunk table (``blocks``),
+          or the cell lists (``dense``); the BUILD_GRID analog
+          (``particleSystem.cpp:1468-1537``)
+        * ``calc_forces`` — the neighbor pass proper: the cluster-pair
+          kernel, or the dense cell-pair pass
+          (``particleSystem.cpp:1120-1383`` analog)
+        * ``unsort``      — kernel outputs back to slot order (``blocks``)
+        * ``lifecycle``   — death/survive/integrate/spawn updates
+        * ``full_frame``  — the whole step, for cross-checking the sum
+
+        Each stage runs ``reps`` times in this process on the inputs the
+        frame gives it (on the active prefix where one is engaged), timed
+        with CUDA events on a card and the host clock on the CPU; a stage's
+        time is the median of its runs.  Results
+        are recorded into ``self.timers`` (phases ``frame/<stage>``) and
+        returned as {stage: ms}.  Does not advance ``self.state``."""
+        from .ops import neighbor_blocks as nbk
+        from .ops.grid import build_bins, coords_to_cell, wrap_positions
+        from .ops.neighbor import collision_okey
+
+        cfg, frame = self.cfg, self.frame
+        state = self.state
+        if self._active and self._active < state.slots:
+            state = state.map(lambda a: a[:self._active])
+        out = {}
+
+        def stage(name, fn):
+            result, out[name] = self._time_ms(fn, reps)
+            return result
+
+        uvec, fert = stage("rng_fields", lambda: nbody.frame_fields(
+            cfg, frame, state.tag))
+
+        def cell_ids():
+            pos_w, coords = wrap_positions(state.pos, cfg.grid)
+            return pos_w, coords_to_cell(coords, cfg.grid)
+
+        pos_w, cell = stage("cell_ids", cell_ids)
+        if self.impl == "blocks":
+            snap, chunks, order, ovf_s, *_ = stage(
+                "build_grid", lambda: nbk.prepare(
+                    state.pos, state.age, state.w, cell, state.alive, cfg,
+                    state.tag))
+            acc_s, gmax_s = stage("calc_forces", lambda: nbk.kernel_call(
+                cfg, snap, chunks))
+            acc, kill, touch, overflow = stage(
+                "unsort", lambda: nbk.unsort_outputs(
+                    acc_s, gmax_s, order, ovf_s, collision_okey(state.tag)))
+        else:
+            bins = stage("build_grid", lambda: build_bins(
+                cell, state.alive, cfg.grid.num_cells, cfg.cell_capacity,
+                list_width=self._width))
+            acc, kill, touch = stage("calc_forces", lambda: (
+                nbody._neighbor_pass(state, bins.cell_list, cfg)))
+            overflow = bins.overflow
+        stage("lifecycle", lambda: nbody.lifecycle_update(
+            state, pos_w, overflow, acc, kill, touch, uvec, fert, frame, cfg))
+        stage("full_frame", lambda: self._step(self.state, frame))
+
+        for name, ms in out.items():
+            self.timers.totals[f"frame/{name}"] += ms / 1e3
+            self.timers.counts[f"frame/{name}"] += 1
+        return out
+
+    # -- persistence -------------------------------------------------------------
+    def save(self, path: str) -> None:
+        checkpoint.save(path, self.state,
+                        meta=dict(frame=self.frame,
+                                  **checkpoint.config_fingerprint(self.cfg)))
+
+    def load(self, path: str) -> None:
+        self.state, meta = checkpoint.load(path, self.state,
+                                           expect_config=self.cfg)
+        self.frame = int(meta.get("frame", 0))
+        self._active = 0  # loaded layout unknown; run() re-buckets
+
+    # -- validation --------------------------------------------------------------
+    def validate(self, frames: int = 5) -> dict:
+        """Run ``frames`` steps of both the device path and the independent
+        numpy oracle (``cpu_ref/oracle_nbody.py``) from the current state
+        and report the deviation: the working version of the reference's
+        serial-vs-parallel comparison, which is stubbed to always pass
+        (``DoCompare``, ``particleSystem.cpp:2254-2257``).  Discrete
+        lifecycle events must match exactly; float trajectories to
+        accumulation-order tolerance.  The device side runs this
+        simulation's ``impl`` at full list width; the oracle gets the same
+        per-frame random fields.  Does not advance ``self.state``."""
+        from .cpu_ref import oracle_nbody
+        from .cpu_ref.oracle_emitter import NpState
+
+        dev = self.state
+        ora = NpState.from_torch(dev)
+        worst = 0.0
+        events_match = True
+        for f in range(self.frame, self.frame + frames):
+            uvec, fert = nbody.frame_fields(self.cfg, f, dev.tag)
+            dev, stats = nbody.step(dev, f, self.cfg, self.impl,
+                                    self._active)
+            ora, ostats = oracle_nbody.step(ora, uvec.cpu().numpy(),
+                                            fert.cpu().numpy(), f, self.cfg)
+            for k, v in ostats.items():
+                if int(getattr(stats, k)) != v:
+                    events_match = False
+            alive = dev.alive.cpu().numpy()
+            if not np.array_equal(alive, ora.alive):
+                events_match = False
+            if alive.any():
+                worst = max(worst, float(np.abs(
+                    dev.pos.cpu().numpy()[alive] - ora.pos[alive]).max()))
+        return {"events_match": events_match,
+                "max_position_deviation": worst, "frames": frames}

@@ -28,8 +28,9 @@ from ..core import rng
 from ..core.config import NBodyConfig
 from ..core.state import FIELDS, ParticleState, zero_state
 from ..ops.compact import rank_table, write_rows
-from ..ops.grid import coords_to_cell, wrap_positions
-from ..ops.neighbor import as_f32
+from ..ops.grid import (build_bins, chunk_occupancy, coords_to_cell,
+                        wrap_positions)
+from ..ops.neighbor import as_f32, collision_okey, neighbor_pass
 from ..ops.neighbor_blocks import neighbor_pass_blocks
 
 
@@ -92,6 +93,18 @@ def frame_fields(cfg: NBodyConfig, frame: int, tags: torch.Tensor):
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(dtype=torch.int64)
+
+
+def _neighbor_pass(state: ParticleState, cell_list: torch.Tensor,
+                   cfg: NBodyConfig, batch_cells: int = 0):
+    """Collision flags and gravity over the 27-cell stencil by the dense
+    pass: self-exclusion ids are slot indices, collision ordering keys on
+    the persistent tags."""
+    g = cfg.grid.grid_dim
+    ids = torch.arange(state.slots, dtype=torch.int32, device=state.device)
+    return neighbor_pass(state.pos, state.age, state.w, ids, cell_list,
+                         (g, g, g), cfg, batch_cells=batch_cells,
+                         okeys=collision_okey(state.tag))
 
 
 def lifecycle_update(state: ParticleState, pos_w: torch.Tensor,
@@ -178,30 +191,42 @@ def lifecycle_update(state: ParticleState, pos_w: torch.Tensor,
 
 
 def step_fields(state: ParticleState, uvec: torch.Tensor, fert: torch.Tensor,
-                frame: int, cfg: NBodyConfig,
-                impl: str = "blocks") -> Tuple[ParticleState, NBodyStats]:
+                frame: int, cfg: NBodyConfig, impl: str = "blocks",
+                list_width: int = 0) -> Tuple[ParticleState, NBodyStats]:
     """Deterministic step given the per-frame random fields ``uvec`` (N, 3)
     and ``fert`` (N,) (see :func:`frame_fields`); ``frame`` enters only
-    through child tags."""
-    if impl != "blocks":
-        raise NotImplementedError(
-            f"impl={impl!r}: the dense cell-pair pass is not ported yet "
-            f"(ROADMAP.md, Queue 1 items 3-4)")
+    through child tags.  ``impl`` and ``list_width`` as in :func:`step`."""
+    if impl not in ("blocks", "dense"):
+        raise ValueError(f"unknown neighbor pass {impl!r}")
     grid = cfg.grid
     pos_w, coords = wrap_positions(state.pos, grid)
     cell = coords_to_cell(coords, grid)
-    acc, kill, touch, overflow, max_occ, cell_counts, dropped = \
-        neighbor_pass_blocks(state.pos, state.age, state.w, cell,
-                             state.alive, cfg, state.tag)
+    if impl == "blocks":
+        acc, kill, touch, overflow, max_occ, cell_counts, dropped = \
+            neighbor_pass_blocks(state.pos, state.age, state.w, cell,
+                                 state.alive, cfg, state.tag)
+    else:
+        bins = build_bins(cell, state.alive, grid.num_cells,
+                          cfg.cell_capacity, list_width=list_width)
+        acc, kill, touch = _neighbor_pass(state, bins.cell_list, cfg)
+        overflow = bins.overflow
+        max_occ = bins.max_cell_occupancy.to(torch.int64)
+        dropped = bins.n_listed_dropped.to(torch.int64)
     out, counts = lifecycle_update(state, pos_w, overflow, acc, kill, touch,
                                    uvec, fert, frame, cfg)
-    # chunk occupancy is a reshape-sum over the per-cell counts
-    cd, cf = grid.chunk_dim, grid.chunk_factor
-    per_cell = cell_counts[:grid.num_cells].reshape(cf, cd, cf, cd, cf, cd)
+    if impl == "blocks":
+        # chunk occupancy is a reshape-sum over the per-cell counts
+        cd, cf = grid.chunk_dim, grid.chunk_factor
+        per_cell = cell_counts[:grid.num_cells].reshape(cf, cd, cf, cd, cf,
+                                                        cd)
+        max_chunk = per_cell.sum(dim=(1, 3, 5)).max()
+    else:
+        max_chunk = chunk_occupancy(bins.cell_of, state.alive & ~overflow,
+                                    grid).max()
     stats = NBodyStats(
         n_listed_dropped=dropped,
         max_cell_occupancy=max_occ,
-        max_chunk_occupancy=per_cell.sum(dim=(1, 3, 5)).max(),
+        max_chunk_occupancy=max_chunk,
         n_tail_alive=torch.zeros((), dtype=torch.int64, device=state.device),
         **counts,
     )
@@ -235,9 +260,17 @@ def compact_state(state: ParticleState) -> ParticleState:
 
 
 def step(state: ParticleState, frame: int, cfg: NBodyConfig,
-         impl: str = "blocks", active: int = 0
+         impl: str = "blocks", active: int = 0, list_width: int = 0
          ) -> Tuple[ParticleState, NBodyStats]:
     """Full frame: per-frame random fields + physics.
+
+    ``impl="blocks"`` is the cluster-pair pass (the CUDA kernel on a card;
+    work scales with live particles).  ``impl="dense"`` is the cell-pair
+    pass in plain tensor code, the reference beside the kernel; its
+    ``list_width`` narrows the padded cell lists (cost grows with the
+    square of the width), so size it from the previous frame's
+    ``max_cell_occupancy`` (see ``api.NBodySimulation``) and keep
+    ``stats.n_listed_dropped == 0``.
 
     ``active`` runs the whole frame on the slot prefix ``[0, active)``.
     Caller contract (see :func:`compact_state`): every alive row and enough
@@ -247,7 +280,8 @@ def step(state: ParticleState, frame: int, cfg: NBodyConfig,
     if active and active < state.slots:
         head = state.map(lambda a: a[:active])
         uvec, fert = frame_fields(cfg, frame, head.tag)
-        out_head, stats = step_fields(head, uvec, fert, frame, cfg, impl)
+        out_head, stats = step_fields(head, uvec, fert, frame, cfg, impl,
+                                      list_width)
         tail = state.map(lambda a: a[active:])
         out = ParticleState(**{
             f: torch.cat([getattr(out_head, f), getattr(tail, f)])
@@ -255,4 +289,4 @@ def step(state: ParticleState, frame: int, cfg: NBodyConfig,
         stats.n_tail_alive = _count(tail.alive)
         return out, stats
     uvec, fert = frame_fields(cfg, frame, state.tag)
-    return step_fields(state, uvec, fert, frame, cfg, impl)
+    return step_fields(state, uvec, fert, frame, cfg, impl, list_width)

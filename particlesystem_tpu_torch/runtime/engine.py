@@ -61,6 +61,14 @@ class EngineState:
     n_free: torch.Tensor     # 0-dim int32: valid free-list entries
     frame: int
 
+    @property
+    def n_fields(self) -> int:
+        return len(self.fields)
+
+    @property
+    def device(self) -> torch.device:
+        return self.fields[0].device
+
 
 class PackedEngine:
     """Frame loop over per-field SoA state on ``device`` (default: the
@@ -225,16 +233,16 @@ class PackedEngine:
         return f if self.alloc == "select" else f[: self.cfg.slots]
 
 
-def engine_state_from_numpy(leaves: Sequence, engine: PackedEngine
-                            ) -> EngineState:
-    """An :class:`EngineState` on ``engine``'s device from the leaves of a
-    JAX-package ``EngineState`` taken with ``np.asarray``, in its field
-    order: the ``n_fields`` field arrays (native shape), then accum,
-    free_list, cursor, n_free, frame."""
-    nf = engine.n_fields
+def engine_state_from_numpy(leaves: Sequence, like) -> EngineState:
+    """An :class:`EngineState` from the leaves of a JAX-package
+    ``EngineState`` taken with ``np.asarray``, in its field order: the
+    ``n_fields`` field arrays (native shape), then accum, free_list,
+    cursor, n_free, frame.  ``like``, a :class:`PackedEngine` or an
+    :class:`EngineState`, gives the device and the number of fields."""
+    nf = like.n_fields
     if len(leaves) != nf + 5:
         raise ValueError(f"{len(leaves)} leaves, expected {nf + 5}")
-    dev = engine.device
+    dev = like.device
 
     def t(a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=dev)

@@ -100,4 +100,11 @@ def load_library() -> ctypes.CDLL:
                               ctypes.c_int, ctypes.c_int, _P, _P,
                               ctypes.c_int, _P, _P]
     fn.restype = ctypes.c_int
+    fn = lib.ps_probe_alu_ops
+    fn.argtypes = [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, _P]
+    fn.restype = ctypes.c_int
+    fn = lib.ps_probe_affine
+    fn.argtypes = [_P, _P, ctypes.c_longlong, _P]
+    fn.restype = ctypes.c_int
     return lib

@@ -44,6 +44,8 @@ from particlesystem_tpu_torch.ops import physics_kernel as tpk
 from particlesystem_tpu_torch.runtime.engine import (
     PackedEngine as TEngine, engine_state_from_numpy, engine_state_to_numpy)
 
+torch.set_num_threads(1)
+
 SPAWN_TOL = dict(rtol=1e-6, atol=1e-6)
 STEP_TOL = dict(rtol=1e-5, atol=1e-5)
 TRAJ_TOL = dict(rtol=1e-4, atol=1e-4)

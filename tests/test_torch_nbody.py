@@ -11,7 +11,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
+import torch
 
 from particlesystem_tpu import GridSpec, NBodyConfig
 from particlesystem_tpu.cpu_ref import oracle_nbody
@@ -22,6 +22,8 @@ from particlesystem_tpu_torch import NBodyConfig as TNBodyConfig
 from particlesystem_tpu_torch.api import NBodySimulation
 from particlesystem_tpu_torch.core.state import FIELDS, state_to_numpy
 from particlesystem_tpu_torch.models import nbody as tnbody
+
+torch.set_num_threads(1)
 
 # tests/test_nbody_parity.py:22-31
 DENSE = NBodyConfig(
@@ -192,10 +194,3 @@ def test_simulation_run_per_frame():
     sim.run(6, batch=1)
     assert sim.frame == 6
     assert_run_matches(sim, *reference_run(cfg, 6))
-
-
-def test_dense_impl_not_ported():
-    tcfg = port_cfg(DENSE)
-    st = tnbody.init_fill(tcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnbody.step(st, 0, tcfg, impl="dense")

@@ -36,6 +36,8 @@ from particlesystem_tpu_torch.models import nbody as tnbody
 from particlesystem_tpu_torch.ops import grid as tgrid
 from particlesystem_tpu_torch.ops.neighbor import collision_okey as t_okey
 
+torch.set_num_threads(1)
+
 # tests/test_neighbor_blocks.py:22-32
 CONFIGS = {
     "dense-g4": NBodyConfig(n_fill=1500, capacity=2048,

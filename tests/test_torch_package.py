@@ -25,6 +25,8 @@ from particlesystem_tpu_torch.api import NBodySimulation
 from particlesystem_tpu_torch.models import nbody as tnbody
 from particlesystem_tpu_torch.ops.grid import coords_to_cell, wrap_positions
 
+torch.set_num_threads(1)
+
 PKG = pathlib.Path(particlesystem_tpu_torch.__file__).parent
 REPO = PKG.parent
 
@@ -35,6 +37,16 @@ def _module(path):
 
 
 MODULES = sorted(_module(p) for p in PKG.rglob("*.py"))
+
+
+def test_scan_covers_every_module_of_the_port():
+    """The two scans below walk the package: the runtime, the oracles and
+    the tools are in it."""
+    for name in ("cpu_ref.oracle_emitter", "cpu_ref.oracle_nbody",
+                 "cpu_ref.native_emitter", "runtime.checkpoint",
+                 "runtime.readback", "utils.native", "tools.probe_alu_ops",
+                 "tools.probe_two_shapes", "ops.grid", "ops.neighbor"):
+        assert f"{PKG.name}.{name}" in MODULES, name
 
 
 def test_import_leaves_jax_out():

@@ -23,6 +23,8 @@ from particlesystem_tpu_torch.core import rng as trng
 from particlesystem_tpu_torch.core.state import state_to_numpy
 from particlesystem_tpu_torch.models import nbody as tnbody
 
+torch.set_num_threads(1)
+
 PURPOSES = {"UVEC": jrng.UVEC, "FERT": jrng.FERT, "FILL": jrng.FILL}
 EDGE_TAGS = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)
 
