@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core.config import EmitterSceneConfig
+from ..utils.cuda_build import launch
 from . import fused_step as fs
 
 MAX_PLANES = 8
@@ -102,8 +103,6 @@ def physics_step_cuda(fields, cfg: EmitterSceneConfig, window=None):
     ``fields`` in place and returns them.  ``window`` as in the module
     docstring; its cursor must lie in ``[0, N - W]``.  Counts its launches
     in ``physics_step_cuda.launches``."""
-    from ..utils.cuda_build import load_library
-
     _check(fields, window)
     dev = fields[0].device
     if dev.type != "cuda":
@@ -116,13 +115,9 @@ def physics_step_cuda(fields, cfg: EmitterSceneConfig, window=None):
     if window is not None:
         rows, valid, cursor = (t.data_ptr() for t in window)
         w = window[1].shape[0]
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ps_physics_step(
-            *ptrs, fields[0].shape[0], int(slim), scene.ctypes.data,
-            len(cfg.planes), len(cfg.spheres), rows, valid, w, cursor,
-            stream)
+    err = launch("ps_physics_step", dev, *ptrs, fields[0].shape[0],
+                 int(slim), scene.ctypes.data, len(cfg.planes),
+                 len(cfg.spheres), rows, valid, w, cursor)
     if err:
         raise RuntimeError(f"physics kernel launch failed: CUDA error {err}")
     physics_step_cuda.launches += 1

@@ -47,6 +47,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..utils.cuda_build import launch
+
 B, CH = 512, 1024
 REPS = 64           # repeats of the tile per launch (the TPU grid's 64 steps)
 K1, K2 = 64, 192
@@ -103,8 +105,6 @@ def probe_layers_cuda(variant: str, k: int, x: torch.Tensor,
     """Launch the CUDA kernel on the current stream: ``reps`` repeats of the
     tile ``x`` spread over the grid; returns repeat 0's result.  Counts its
     launches in ``probe_layers_cuda.launches``."""
-    from ..utils.cuda_build import load_library
-
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
     if x.device.type != "cuda":
@@ -118,11 +118,8 @@ def probe_layers_cuda(variant: str, k: int, x: torch.Tensor,
     if reps < 1 or k < 0:
         raise ValueError(f"reps={reps} and k={k} must be >= 1 and >= 0")
     out = torch.empty_like(x)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ps_probe_alu_ops(x.data_ptr(), out.data_ptr(), x.numel(),
-                                   reps, VARIANTS.index(variant), k, stream)
+    err = launch("ps_probe_alu_ops", x.device, x.data_ptr(), out.data_ptr(),
+                 x.numel(), reps, VARIANTS.index(variant), k)
     if err:
         raise RuntimeError(f"probe kernel launch failed: CUDA error {err}")
     probe_layers_cuda.launches += 1

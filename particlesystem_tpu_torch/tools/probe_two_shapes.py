@@ -28,6 +28,8 @@ import sys
 
 import torch
 
+from ..utils.cuda_build import launch
+
 ROWS = 16
 CAP = 1024   # the constant padded width
 WIDTHS = (512, 768)
@@ -42,8 +44,6 @@ def probe_affine_plain(x: torch.Tensor) -> torch.Tensor:
 def probe_affine_cuda(x: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream.  Counts its launches
     in ``probe_affine_cuda.launches``."""
-    from ..utils.cuda_build import load_library
-
     if x.device.type != "cuda":
         raise ValueError(f"probe_affine_cuda needs a CUDA tensor, got "
                          f"{x.device}")
@@ -52,11 +52,8 @@ def probe_affine_cuda(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x must be a contiguous float32 ({ROWS}, width) "
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
     out = torch.empty_like(x)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ps_probe_affine(x.data_ptr(), out.data_ptr(), x.numel(),
-                                  stream)
+    err = launch("ps_probe_affine", x.device, x.data_ptr(), out.data_ptr(),
+                 x.numel())
     if err:
         raise RuntimeError(f"affine kernel launch failed: CUDA error {err}")
     probe_affine_cuda.launches += 1

@@ -7,6 +7,11 @@ bound with ``ctypes``.  The library lands in ``_build/`` inside the
 package, named by a hash of the sources and flags, so the first call after
 a change builds it and later calls (and processes) reuse it.  Nothing is
 built or loaded when the module is imported.
+
+Every kernel wrapper launches through :func:`launch`, which keeps the host's
+path to the kernel short: the entry point is looked up once, the stream is
+taken as a raw handle, and no device context is entered when the tensors
+already lie on the current device.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -92,7 +99,7 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     fn = lib.ps_cluster_pair
     fn.argtypes = [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
                    ctypes.c_float, _P, ctypes.c_longlong, _P, _P]
     fn.restype = ctypes.c_int
     fn = lib.ps_physics_step
@@ -108,3 +115,27 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [_P, _P, ctypes.c_longlong, _P]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    return getattr(load_library(), name)
+
+
+def current_stream_handle(index: int) -> int:
+    """The raw ``cudaStream_t`` of device ``index``'s current stream, without
+    a ``torch.cuda.Stream`` object around it."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(name: str, device: torch.device, *args) -> int:
+    """Call the C entry point ``name`` with ``args`` and, as its last
+    argument, the current stream of ``device`` (a CUDA device with an
+    index, as every CUDA tensor's is).  Returns the launch's CUDA error
+    code, 0 on success: the caller raises on anything else."""
+    fn = _entry(name)
+    index = device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return fn(*args, current_stream_handle(index))
+    return fn(*args, current_stream_handle(index))
