@@ -4,12 +4,25 @@
     python -m particlesystem_tpu_torch nbody --particles 1048576 \
         --grid-dim 16 --iterations 10 --device cuda \
         [--impl dense] [--validate] [--save run.npz]
+    python -m particlesystem_tpu_torch nbody --devices 2 --decomp slab \
+        [--d3 N] [--autosize] [--device cuda:0]
     python -m particlesystem_tpu_torch demo --capacity 1000000 --frames 600
+
+``--devices D`` (or an explicit ``--decomp``) runs the decomposed
+simulation (``parallel.driver.DistributedNBodySimulation``) on D ranks, one
+process each.  Under a launcher (``PSTPU_COORDINATOR``,
+``PSTPU_NUM_PROCESSES`` and ``PSTPU_PROCESS_ID`` set, see
+``parallel/mesh.py``) this process is one rank; otherwise it spawns the D
+ranks itself over localhost.  ``--device cuda`` gives each rank its own card,
+``cuda:{LOCAL_RANK}`` (rank r of a local spawn: ``cuda:r``), over NCCL; a
+device with an index (``cuda:0``) or ``cpu`` is shared by every rank, over
+gloo.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 
 
 def _cmd_nbody(args):
@@ -18,6 +31,9 @@ def _cmd_nbody(args):
 
     cfg = NBodyConfig(n_fill=args.particles,
                       grid=GridSpec(grid_dim=args.grid_dim))
+    if args.devices > 1 or args.decomp:
+        _run_nbody_sharded(args, cfg)
+        return
     sim = NBodySimulation(cfg, device=args.device, impl=args.impl)
     sim.run(args.iterations, verbose=True, batch=args.batch)
     if args.validate:
@@ -26,6 +42,26 @@ def _cmd_nbody(args):
         sim.save(args.save)
         print(f"checkpoint written to {args.save}")
     print(sim.timers.report())
+
+
+def _run_nbody_sharded(args, cfg):
+    """The decomposed simulation: this process as one rank under a
+    launcher, or the ranks spawned here."""
+    import torch.distributed as dist
+
+    from .parallel import mesh as meshmod
+    from .parallel.driver import cli_rank
+
+    group = meshmod.maybe_init_distributed()
+    if group is not None or args.devices == 1:
+        cli_rank(0 if group is None else dist.get_rank(group), group, args,
+                 cfg)
+        return
+    own_cards = args.device == "cuda"
+    options = argparse.Namespace(**{k: v for k, v in vars(args).items()
+                                    if k != "fn"})  # what pickles
+    meshmod.spawn(cli_rank, args.devices, (options, cfg),
+                  backend="nccl" if own_cards else "gloo", timeout=math.inf)
 
 
 def _cmd_demo(args):
@@ -56,6 +92,16 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda needs a card; cpu runs the "
                         "kernels' plain versions)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="ranks of the decomposed run (the mpirun -n analog)")
+    p.add_argument("--decomp", choices=("slab", "pencil", "brick"),
+                   default=None, help="spatial decomposition (default slab "
+                                      "when --devices > 1)")
+    p.add_argument("--d3", type=int, default=0,
+                   help="ranks along i3 for pencil/brick (0 = auto)")
+    p.add_argument("--autosize", action="store_true",
+                   help="measure-then-shrink halo/migration buffers before "
+                        "the run (decomposed runs only)")
     p.add_argument("--impl", choices=("blocks", "dense"), default="blocks",
                    help="neighbor pass: the cluster-pair kernel, or the "
                         "dense cell-pair pass in plain tensor code")

@@ -11,10 +11,12 @@ other.
   cursor, n_free, frame), in its dtypes (float32, bool, uint32 tags, int32
   cursors and frame), and ``__meta__``, JSON bytes holding the frame counter
   and the config fingerprint.
-* **Sharded** (a directory of per-process ``.npz`` shard files and one
-  ``meta.json``, written by the JAX package's ``save_sharded``):
-  :func:`load_sharded_host` assembles the full state on the host.  The
-  per-process writer and reader belong to the multi-device slice.
+* **Sharded** (:func:`save_sharded` / :func:`load_sharded`): a directory
+  of per-process ``shard_p{pid:05d}.npz`` files and one ``meta.json``, the
+  JAX package's ``save_sharded`` format.  Each process writes only the
+  rows it holds, with their global index ranges, and reads back only the
+  ranges it owns; :func:`load_sharded_host` assembles the full state on
+  the host (the path between decompositions).
 
 The port keeps tags as uint32 values in int64 tensors (torch has no uint32
 arithmetic) and the engine's frame as a host int; the conversion to and
@@ -26,9 +28,10 @@ from the file's dtypes happens here, at the file boundary, through
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -108,9 +111,105 @@ def load(path: str, template, expect_config=None):
     return _from_numpy(template, loaded), meta
 
 
-# -- sharded (directory) format: the host reader -----------------------------
+# -- sharded (directory) format -----------------------------------------------
 
 _SHARDED_FORMAT = "pstpu-sharded-v1"
+
+
+class Shard(NamedTuple):
+    """One leaf's part held by this process: ``data`` (numpy, the file's
+    dtype) is the slice ``index`` ([[start, stop], ...] per dimension) of
+    a global array of ``shape``."""
+
+    data: np.ndarray
+    index: list
+    shape: tuple
+
+
+def state_shards(state: ParticleState, rows: slice, slots: int
+                 ) -> List[Shard]:
+    """The leaves of a rank's local ``ParticleState`` as :class:`Shard` parts:
+    rows ``[rows.start, rows.stop)`` of global leaves of ``slots`` rows."""
+    out = []
+    for a in _to_numpy(state):
+        shape = (slots,) + a.shape[1:]
+        out.append(Shard(a, [[rows.start, rows.stop]]
+                         + [[0, d] for d in a.shape[1:]], shape))
+    return out
+
+
+def _barrier(group) -> None:
+    if group is not None:
+        import torch.distributed as dist
+        if dist.get_world_size(group) > 1:
+            dist.barrier(group=group)
+
+
+def save_sharded(path: str, shards: List[Shard], meta: dict | None = None,
+                 group=None) -> None:
+    """Write a checkpoint directory: ``meta.json`` (process 0) and one
+    ``shard_p{pid:05d}.npz`` for each process of ``group`` (None: a lone
+    process), holding its :class:`Shard` parts, one per leaf, and their global
+    index ranges.  Collective over ``group``: process 0 first removes stale
+    shard files and ``meta.json`` behind a barrier (a re-save by fewer
+    processes leaves no higher-pid file behind), and the call returns after
+    a second barrier, so every process may load the result at once.  With
+    several processes ``path`` must be a filesystem all of them share."""
+    import torch.distributed as dist
+    pid = 0 if group is None else dist.get_rank(group)
+    n_proc = 1 if group is None else dist.get_world_size(group)
+    os.makedirs(path, exist_ok=True)
+    if pid == 0:
+        for fn in glob.glob(os.path.join(path, "shard_p*.npz")):
+            os.unlink(fn)
+        stale_meta = os.path.join(path, "meta.json")
+        if os.path.exists(stale_meta):
+            os.unlink(stale_meta)
+    _barrier(group)  # nobody writes before the stale files are gone
+    arrays = {}
+    for i, sh in enumerate(shards):
+        arrays[f"l{i}s0"] = np.asarray(sh.data)
+        arrays[f"l{i}s0_idx"] = np.asarray(sh.index, dtype=np.int64
+                                           ).reshape(-1, 2)
+    np.savez(os.path.join(path, f"shard_p{pid:05d}.npz"), **arrays)
+    if pid == 0:
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(dict(format=_SHARDED_FORMAT, meta=meta or {},
+                           n_processes=n_proc,
+                           leaves=[dict(shape=list(sh.shape),
+                                        dtype=str(np.asarray(sh.data).dtype))
+                                   for sh in shards]), f)
+    _barrier(group)
+
+
+def load_sharded(path: str, wanted: List[Shard], expect_config=None):
+    """Read from a :func:`save_sharded` directory (of either package) only
+    the ranges this process owns.  ``wanted`` gives, per leaf, the index to
+    read, the global shape and (as ``data``) an array of the expected
+    dtype; shapes and dtypes must match the file's.  Returns (list of numpy
+    arrays, meta).  A shard file missing from a multi-process checkpoint
+    raises ``FileNotFoundError`` (they need a shared filesystem)."""
+    info = _read_sharded_meta(path, expect_config)
+    if len(info["leaves"]) != len(wanted):
+        raise ValueError(f"checkpoint has {len(info['leaves'])} leaves, "
+                         f"expected {len(wanted)}")
+    for want, lm in zip(wanted, info["leaves"]):
+        if list(want.shape) != lm["shape"]:
+            raise ValueError(f"checkpoint leaf shape {lm['shape']} != "
+                             f"{list(want.shape)} — config mismatch?")
+        if np.dtype(lm["dtype"]) != np.asarray(want.data).dtype:
+            raise ValueError(f"checkpoint leaf dtype {lm['dtype']} != "
+                             f"{np.asarray(want.data).dtype} — config "
+                             f"mismatch?")
+    chunks, handles = _chunk_index(path, info["n_processes"])
+    try:
+        out = [_assemble(want.index, np.dtype(lm["dtype"]),
+                         chunks.get(i, []))
+               for i, (want, lm) in enumerate(zip(wanted, info["leaves"]))]
+    finally:
+        for z in handles:
+            z.close()
+    return out, info["meta"]
 
 
 def is_sharded(path: str) -> bool:
