@@ -94,9 +94,15 @@ Phases (any failure raises and exits non-zero):
     single-device frame, peak memory, and the sharded checkpoint saved
     after frame 10 and resumed bit-identically; (b) slab D=2, pencil
     (2, 2) and brick (2, 2, 2), ranks spawned on the one card over gloo
-    (the tests' config shape at 32,768 particles), each against the
+    (the tests' config shape at 32,768 particles; the slab's halo buffers
+    8,000 rows, so its passes carry padding rows), each against the
     single-device run inside the parity windows (8, 7, 7 frames), with
-    ms/frame and the bytes staged through the host; (c) the data-parallel
+    ms/frame and the bytes staged through the host.  In (a) and (b) the
+    pair kernel is also held against its plain version on the inputs the
+    decomposed step gives it (the rank's halo-extended grid, halo rows
+    from other ranks, global ids, -1-id padding): the first pass of (a) on
+    64 evenly spaced live blocks, the first and the last pass of the
+    window on every rank of (b), whole; (c) the data-parallel
     emitter: one rank at 10,485,760 slots bit for bit ``PackedEngine``,
     two ranks at 1,048,576 slots bit for bit two local engines salted 0
     and 1.  Every spawn has a time limit.
@@ -107,6 +113,7 @@ and power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1432,6 +1439,10 @@ SHARDED_RESUME = 5
 MULTI_FILL, MULTI_SLOTS, MULTI_SEED = 32768, 65536, 11
 MULTI_SPAWN_BUDGET, MULTI_CELL_CAP = MULTI_SLOTS // 4, 64
 MULTI_TIMED = 8
+# rows a halo buffer of the slab run: no multiple of the pair kernel's
+# 512-row blocks, so the pass pads its rows with id -1 (the derived
+# capacity, a cell cap of planes, never does); ~1,100 are used
+MULTI_SLAB_HALO = 8000
 SPAWN_TIMEOUT = 300.0
 DP_SLOTS, DP_FRAMES = 1 << 20, 60
 
@@ -1459,7 +1470,8 @@ def multi_runs():
     """(name, world size, spec, parity window in frames)."""
     from particlesystem_tpu_torch.parallel import (BrickSpec, PencilSpec,
                                                    SlabSpec)
-    return (("slab D=2", 2, SlabSpec(2, impl="blocks"), 8),
+    return (("slab D=2", 2, SlabSpec(2, halo_capacity=MULTI_SLAB_HALO,
+                                     impl="blocks"), 8),
             ("pencil (2, 2)", 4, PencilSpec(2, 2, impl="blocks"), 7),
             ("brick (2, 2, 2)", 8, BrickSpec(2, 2, 2, impl="blocks"), 7))
 
@@ -1476,11 +1488,75 @@ def _alive_rows(state):
     return tags[order], rows[order]
 
 
+@contextlib.contextmanager
+def sharded_pair_checks(c_local, at, subset=None):
+    """Hold the pair kernel against its plain version on the inputs the
+    decomposed step gives it: the ``at``-th calls (0 the first) of this
+    process's neighbor pass over its halo-extended grid, with the halo rows
+    from other ranks, global ids and -1-id padding rows.  Wraps
+    ``nbody_sharded.neighbor_pass_blocks`` (the slab, the pencil and the
+    brick all call it), builds the pass's snapshot and chunk table with
+    ``prepare``, checks the ids unique among the valid rows (the kernel's
+    precondition) and runs :func:`compare_kernel` on the whole pass, or on
+    ``subset`` evenly spaced live blocks; the launches of the comparison
+    are taken off the kernel's count.  On the CPU, where there is no
+    kernel, only the inputs are recorded.  Yields the list of records."""
+    import torch
+    from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
+    from particlesystem_tpu_torch.parallel import nbody_sharded
+    inner = nbody_sharded.neighbor_pass_blocks
+    calls, records = [0], []
+
+    def checked(pos0, age0, w0, cell, alive, cfg, tags, dims=None, ids=None):
+        if calls[0] in at:
+            n = pos0.shape[0]
+            assert torch.unique(ids[alive]).numel() == int(alive.sum()), \
+                "the pass's ids are not unique among its valid rows"
+            snap, chunks, *_ = nbk.prepare(pos0, age0, w0, cell, alive, cfg,
+                                           tags, dims=dims, ids=ids)
+            rec = dict(call=calls[0], dims=tuple(dims), rows=n,
+                       halo=int(alive[c_local:].sum()),
+                       pad=int((ids == -1).sum()),
+                       in_band=int((snap.f[3] >= 0).sum()), err=None)
+            if pos0.device.type == "cuda":
+                blocks = None
+                if subset:
+                    live = max(1, -(-int(alive.sum()) // nbk.B))
+                    blocks = torch.linspace(
+                        0, live - 1, subset,
+                        device=pos0.device).round().to(torch.int32)
+                count = nbk.cluster_pair_cuda.launches
+                rec["err"] = compare_kernel(cfg, snap, chunks, nbk.B, nbk.CH,
+                                            blocks)
+                nbk.cluster_pair_cuda.launches = count
+            records.append(rec)
+        calls[0] += 1
+        return inner(pos0, age0, w0, cell, alive, cfg, tags, dims=dims,
+                     ids=ids)
+
+    nbody_sharded.neighbor_pass_blocks = checked
+    try:
+        yield records
+    finally:
+        nbody_sharded.neighbor_pass_blocks = inner
+
+
+def pair_check_text(records) -> str:
+    return "; ".join(
+        f"pass {r['call']} dims {r['dims']}: {r['rows']} rows ({r['halo']} "
+        f"valid halo rows, {r['pad']} padding rows of id -1, {r['in_band']} "
+        f"in band), " + ("no kernel on the CPU" if r["err"] is None else
+                         f"gmax exact, acc max abs err {r['err']:.3e}")
+        for r in records)
+
+
 def rank_nbody(rank, group, cfg, spec, frames, timed, device):
     """One rank of a phase-11 multi-rank run: ``frames`` frames read one by
-    one (statistics and the gathered alive rows), then ``timed`` frames in
-    one batch; rank 0 returns the frames, ms/frame, bytes staged through
-    the host a frame and its kernel launches."""
+    one (statistics and the gathered alive rows), the pair kernel held
+    against its plain version on the first and the last of those frames'
+    passes, then ``timed`` frames in one batch; rank 0 returns the frames,
+    ms/frame, bytes staged through the host a frame, its kernel launches
+    and its kernel checks."""
     import torch
     from particlesystem_tpu_torch.core.state import state_to_numpy
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
@@ -1490,9 +1566,13 @@ def rank_nbody(rank, group, cfg, spec, frames, timed, device):
     nbk.cluster_pair_cuda.launches = 0
     sim = DistributedNBodySimulation(cfg, spec, group=group, device=dev)
     out = []
-    for _ in range(frames):
-        stats = sim.run(1, batch=1)
-        out.append((stats, _alive_rows(state_to_numpy(sim.gather()))))
+    with sharded_pair_checks(cfg.slots // group.size(),
+                             at=(0, frames - 1)) as checks:
+        for _ in range(frames):
+            stats = sim.run(1, batch=1)
+            out.append((stats, _alive_rows(state_to_numpy(sim.gather()))))
+    assert [r["call"] for r in checks] == [0, frames - 1], checks
+    assert all(r["halo"] > 0 and r["in_band"] > 0 for r in checks), checks
     launches = nbk.cluster_pair_cuda.launches
     staged = sim.mesh.staged_bytes
     if dev.type == "cuda":
@@ -1503,7 +1583,7 @@ def rank_nbody(rank, group, cfg, spec, frames, timed, device):
         torch.cuda.synchronize(dev)
     ms = (time.perf_counter() - t0) * 1e3 / timed
     per_frame = (sim.mesh.staged_bytes - staged) / timed
-    return (out, ms, per_frame, launches) if rank == 0 else None
+    return (out, ms, per_frame, launches, checks) if rank == 0 else None
 
 
 def rank_emitter(rank, group, cfg, frames, device):
@@ -1585,7 +1665,10 @@ def phase_sharded_one_rank(dev, cfg=None):
         sim = DistributedNBodySimulation(cfg, spec, group=group, device=dev)
         start = sim.state.map(lambda a: a.clone())
         reset_launches()
-        first = sim.run(SHARDED_ITERS)
+        with sharded_pair_checks(cfg.slots, at=(0,),
+                                 subset=SUBSET_BLOCKS) as checks:
+            first = sim.run(SHARDED_ITERS)
+        assert [r["call"] for r in checks] == [0], checks
         n_launch_first = launches()["cluster_pair"]
         at10 = sim.state.map(lambda a: a.clone())
         with tempfile.TemporaryDirectory() as tmp:
@@ -1659,6 +1742,9 @@ def phase_sharded_one_rank(dev, cfg=None):
               f"beside {ms_single:.3f} ms/frame single-device full width "
               f"(CUDA events a frame); "
               f"peak memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+        print(f"phase 11a: the pair kernel vs its plain version on the "
+              f"sharded pass's own inputs, {SUBSET_BLOCKS} evenly spaced "
+              f"live blocks: {pair_check_text(checks)}")
         print(f"phase 11a: sharded checkpoint at frame {SHARDED_ITERS}: "
               f"{size} bytes, save {save_s:.3f} s, load {load_s:.3f} s; "
               f"{SHARDED_RESUME} more frames bit-identical to the "
@@ -1668,7 +1754,8 @@ def phase_sharded_one_rank(dev, cfg=None):
         dist.destroy_process_group()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-    return dict(ms=ms_sharded, single_ms=ms_single, launches=n_launch)
+    return dict(ms=ms_sharded, single_ms=ms_single, launches=n_launch,
+                err=checks[0]["err"] or 0.0)
 
 
 def phase_sharded_ranks(dev):
@@ -1683,7 +1770,7 @@ def phase_sharded_ranks(dev):
     out = {}
     for name, ws, spec, frames in multi_runs():
         t0 = time.perf_counter()
-        got, ms, staged, n_launch = spawn(
+        got, ms, staged, n_launch, checks = spawn(
             rank_nbody, ws, (cfg, spec, frames, MULTI_TIMED, str(dev)),
             backend="gloo", timeout=SPAWN_TIMEOUT)[0]
         wall = time.perf_counter() - t0
@@ -1703,6 +1790,8 @@ def phase_sharded_ranks(dev):
             assert_close_chaotic(rows, rrows, f"{name} frame {frame}")
             migrated += stats["migration_used_max"]
         assert migrated > 0, f"{name}: no particle migrated"
+        if spec.splits()[0].halo == MULTI_SLAB_HALO:
+            assert all(r["pad"] > 0 for r in checks), (name, checks)
         assert n_launch == (frames if dev.type == "cuda" else 0), \
             (name, n_launch)
         print(f"phase 11b: {name} on {ws} ranks sharing {dev} over gloo, "
@@ -1714,7 +1803,11 @@ def phase_sharded_ranks(dev):
               f"{MULTI_TIMED} more frames {ms:.3f} ms/frame with "
               f"{staged:.0f} bytes staged through the host a frame at rank "
               f"0; {wall:.1f} s with the spawn")
-        out[name] = dict(ms=ms, staged=staged)
+        print(f"phase 11b: {name}: the pair kernel vs its plain version on "
+              f"each rank's own pass inputs, rank 0: "
+              f"{pair_check_text(checks)}")
+        out[name] = dict(ms=ms, staged=staged,
+                         err=max(r["err"] or 0.0 for r in checks))
     if dev.type == "cuda":
         print(f"phase 11b: compute processes on the card after the spawns "
               f"(this one is {os.getpid()}): {card_processes()}")
@@ -1810,8 +1903,8 @@ def main() -> int:
     phase_validate_checkpoint_profile(sim, dev)
     del sim
     phase_readback(dev)
-    phase_sharded_one_rank(dev)
-    phase_sharded_ranks(dev)
+    sharded = [phase_sharded_one_rank(dev)]
+    sharded += phase_sharded_ranks(dev).values()
     phase_sharded_emitter(dev)
 
     kernels = [{
@@ -1820,7 +1913,8 @@ def main() -> int:
         "source": "particlesystem_tpu_torch/csrc/neighbor_blocks.cu",
         "replaces": "particlesystem_tpu/ops/neighbor_blocks.py:296",
         "launches": main_path["launches"],
-        "max_abs_err": max(worst, main_path["err"]),
+        "max_abs_err": max([worst, main_path["err"]]
+                           + [r["err"] for r in sharded]),
         "ms": main_path["plateau"]["ms"],
         "plain_ms": main_path["plateau"]["plain_ms"],
         "bound_ms": main_path["plateau"]["bound_ms"],

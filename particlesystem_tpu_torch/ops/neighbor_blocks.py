@@ -356,15 +356,12 @@ def kernel_call(cfg: NBodyConfig, snap: Snapshot, chunks,
     raise ValueError(f"no cluster-pair kernel for device {dev}")
 
 
-def unsort_outputs(acc_s, gmax_s, order, overflow_s, okeys=None, ids=None):
+def unsort_outputs(acc_s, gmax_s, order, overflow_s, okeys):
     """Scatter the sorted-order kernel outputs back to slot order; returns
     (acc (N, 3), kill, touch, overflow).  ``okeys`` is the mine-side
-    collision order key (:func:`collision_okey` of the tags); without it,
-    ``ids`` (or slot order) orders kill/survive, as in the JAX package."""
-    if okeys is None:
-        okeys = (torch.arange(order.shape[0], dtype=torch.int32,
-                              device=order.device) if ids is None
-                 else ids.to(torch.int32))
+    collision order key (:func:`collision_okey` of the tags): collisions
+    are ordered by the tags' okey, not by slot or by ``ids``, which is what
+    keeps a decomposed run's kill/survive decisions those of one device."""
     acc = torch.empty((order.shape[0], 3), dtype=acc_s.dtype,
                       device=acc_s.device)
     acc[order] = acc_s.T

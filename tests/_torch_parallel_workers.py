@@ -13,8 +13,10 @@ import numpy as np
 import torch
 
 from particlesystem_tpu_torch.core.state import state_to_numpy
+from particlesystem_tpu_torch.models import nbody
 from particlesystem_tpu_torch.parallel import mesh as meshmod
 from particlesystem_tpu_torch.parallel import nbody_sharded
+from particlesystem_tpu_torch.parallel.nbody_brick import BrickSpec
 from particlesystem_tpu_torch.parallel.driver import DistributedNBodySimulation
 from particlesystem_tpu_torch.parallel.emitter_sharded import (
     ShardedEmitterEngine)
@@ -46,7 +48,7 @@ def _check_ids(c_local_of):
     carries a local row's id (the kernel compares ids only without
     softening and otherwise relies on the self pair alone sharing one)."""
     inner = nbody_sharded.neighbor_pass_blocks
-    seen = {"calls": 0}
+    seen = {"calls": 0, "padded": 0}
 
     def checked(pos0, age0, w0, cell, alive, cfg, tags, dims=None,
                 ids=None):
@@ -57,7 +59,9 @@ def _check_ids(c_local_of):
         local = set(gid[:c_local].tolist())
         halo = gid[c_local:][valid[c_local:]]
         assert not local.intersection(halo.tolist()), "halo id == local id"
+        assert not valid[gid == -1].any(), "a padding row is valid"
         seen["calls"] += 1
+        seen["padded"] += int((gid == -1).sum())
         return inner(pos0, age0, w0, cell, alive, cfg, tags, dims=dims,
                      ids=ids)
 
@@ -90,8 +94,38 @@ def nbody_job(rank, group, cfg, spec, frames, full_state=False,
     finally:
         if check_ids:
             nbody_sharded.neighbor_pass_blocks = inner
-    extra = dict(calls=seen["calls"]) if check_ids else {}
+    extra = seen if check_ids else {}
     return (out, extra) if rank == 0 else None
+
+
+def one_rank_job(rank, group, cfg, kind, impl, frames, on):
+    """On rank ``on`` alone, a decomposition of one rank with no group
+    (every collective the identity) beside the port's single-device step
+    from the same arrangement: per frame (stats, state) of each, numpy.
+    ``kind`` "slab" drives ``make_sharded_step``, "brick" the driver."""
+    if rank != on:
+        return None
+    init, dropped = nbody_sharded.distribute(
+        nbody.init_fill(cfg, "cpu"), cfg, nbody_sharded.SlabSpec(1))
+    if kind == "slab":
+        step, shard = nbody_sharded.make_sharded_step(
+            cfg, nbody_sharded.SlabSpec(1, impl=impl), meshmod.mesh_1d(1))
+        ms = shard(init)
+    else:
+        sim = DistributedNBodySimulation(cfg, BrickSpec(1, 1, 1, impl=impl),
+                                         device="cpu")
+    ss, out = init, []
+    for frame in range(frames):
+        if kind == "slab":
+            ms, stats = step(ms, frame)
+            stats = {k: int(v) for k, v in stats.items()}
+        else:
+            stats, ms = sim.run(1), sim.state
+        ss, sstats = nbody.step(ss, frame, cfg, impl)
+        out.append((stats, state_to_numpy(ms),
+                    {k: int(v) for k, v in vars(sstats).items()},
+                    state_to_numpy(ss)))
+    return dict(dropped=dropped, frames=out)
 
 
 def checkpoint_job(rank, group, cfg, spec, jax_path, out_path):
@@ -137,5 +171,5 @@ def emitter_job(rank, group, cfg, alloc, layout, frames, jax_npz, out_dir):
                 resumed=same)
 
 
-JOBS = dict(ppermute=ppermute_job, nbody=nbody_job,
+JOBS = dict(ppermute=ppermute_job, nbody=nbody_job, one_rank=one_rank_job,
             checkpoint=checkpoint_job, emitter=emitter_job)
