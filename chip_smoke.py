@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``particlesystem_tpu_torch/csrc`` and
-drives its four main paths: the n-body simulation,
+drives its main paths: the n-body simulation,
 ``NBodySimulation(NBodyConfig(), device="cuda").run()`` at the reference's
 size (1,048,576 particles, 16^3 grid, 2,097,152 slots), the emitter
 engine, ``ParticleSystem(capacity=10_485_760, alloc="select")`` with the
@@ -12,7 +12,8 @@ bench scene (BASELINE config 5, ``bench.py:44-62``), and the tools
 (``python -m particlesystem_tpu_torch.tools.probe_alu_ops`` and
 ``...probe_two_shapes``), and the multi-device layer
 (``parallel.DistributedNBodySimulation`` and ``ShardedEmitterEngine``, one
-process a rank).  Before each, it checks the path's kernel against
+process a rank), and the bench, entry functions, launcher and measuring
+tools built on them.  Before each, it checks the path's kernel against
 its plain PyTorch version and the port on the card against the port on the
 CPU.  Then it holds the dense neighbor pass against the kernel's on a
 full-width frame and drives validate, checkpoint, profile_frame and the
@@ -105,7 +106,25 @@ Phases (any failure raises and exits non-zero):
     window on every rank of (b), whole; (c) the data-parallel
     emitter: one rank at 10,485,760 slots bit for bit ``PackedEngine``,
     two ranks at 1,048,576 slots bit for bit two local engines salted 0
-    and 1.  Every spawn has a time limit.
+    and 1.  Every spawn has a time limit;
+12. the bench, the entry functions, the launcher and the measuring tools:
+    (a) every stage of ``particlesystem_tpu_torch.bench`` at cut counts
+    (``BENCH_CUT``) through ``bench.run``, the launch counts reset before
+    and read after (both kernels launched, the pair kernel once a pass),
+    the printed JSON line held to its keys with no value null; the first
+    and the last pass of each n-body stage (10,485,760 particles on 32^3
+    among them) held against the plain version on 256 evenly spaced live
+    blocks, and on the single-device passes the chunk table checked to
+    list every stencil partner of those blocks' rows once, against a
+    histogram of the cells; (b) ``entry()``'s frame on the card against
+    the same frame on the CPU, two frames (bookkeeping and alive masks
+    exact, fields within 1e-4, as phase 6), then ``dryrun_multichip(8)``
+    on the card's ranks over gloo, one pair-kernel launch a rank for each
+    decomposition; (c) the CLI, ``nbody --devices 2 --validate --save``,
+    as two processes under the ``PSTPU_*`` launcher variables with
+    ``--device cuda:0`` (each rank's pair-kernel launches read) and then
+    ``--device cpu``; (d) ``tools.measure_ckpt_10m`` and
+    ``tools.measure_batched_run`` once each.
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -142,10 +161,9 @@ TRAJ_TOL = 1e-4                    # tests/test_pallas_step.py:94
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip()
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    from particlesystem_tpu_torch.bench import card_line as line
+    return line()
 
 
 def assert_close_chaotic(a, b, msg):
@@ -1488,36 +1506,69 @@ def _alive_rows(state):
     return tags[order], rows[order]
 
 
+def listed_partners(snap, chunks, b, blocks):
+    """Pairs of in-band rows of ``blocks`` with an in-band column of their
+    chunk table's listed chunks inside the 3x3x3 stencil, the self pair
+    left out: with every chunk listed once, the stencil partners that
+    :func:`pair_work` counts from a histogram of the cells."""
+    import torch
+    dev = snap.f.device
+    ok = snap.f[3] >= 0
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in blocks.tolist():
+        listed = chunks[k].cpu().to(torch.int64)
+        listed = listed[:int(listed[0, 3])].tolist()
+        if not listed:
+            continue
+        cols = torch.cat([a + torch.arange(lo, hi)
+                          for a, lo, hi, _ in listed]).to(dev)
+        rows = torch.arange(k * b, (k + 1) * b, device=dev)
+        m, n = snap.f[3:6, rows, None], snap.f[3:6, None, cols]
+        inside = ((n - m).abs() <= 1.0).all(dim=0)
+        total += (inside & ok[rows, None] & ok[None, cols]
+                  & (snap.i[0, rows, None] != snap.i[0, None, cols])).sum()
+    return int(total)
+
+
 @contextlib.contextmanager
-def sharded_pair_checks(c_local, at, subset=None):
-    """Hold the pair kernel against its plain version on the inputs the
-    decomposed step gives it: the ``at``-th calls (0 the first) of this
-    process's neighbor pass over its halo-extended grid, with the halo rows
-    from other ranks, global ids and -1-id padding rows.  Wraps
-    ``nbody_sharded.neighbor_pass_blocks`` (the slab, the pencil and the
-    brick all call it), builds the pass's snapshot and chunk table with
-    ``prepare``, checks the ids unique among the valid rows (the kernel's
-    precondition) and runs :func:`compare_kernel` on the whole pass, or on
-    ``subset`` evenly spaced live blocks; the launches of the comparison
-    are taken off the kernel's count.  On the CPU, where there is no
-    kernel, only the inputs are recorded.  Yields the list of records."""
+def pair_checks(module, at, c_local=None, subset=None):
+    """Hold the pair kernel against its plain version on the inputs a
+    path gives it: the ``at``-th calls (0 the first) of this process's
+    ``module.neighbor_pass_blocks`` (``models.nbody`` for the single-device
+    step; ``parallel.nbody_sharded`` for the decomposed one, which the slab,
+    the pencil and the brick all call, over a halo-extended grid with the
+    halo rows from other ranks, global ids and -1-id padding rows).  Builds
+    the pass's snapshot and chunk table with ``prepare``, checks the ids
+    unique among the valid rows (the kernel's precondition) and runs
+    :func:`compare_kernel` on the whole pass, or on ``subset`` evenly
+    spaced live blocks (the first and the last among them); on the
+    single-device pass it also checks that the chunk table lists every
+    stencil partner of those blocks' rows once (:func:`listed_partners`
+    against :func:`pair_work`'s histogram).  The launches of the
+    comparison are taken off the kernel's count.  On the CPU, where there
+    is no kernel, only the inputs are recorded.  ``c_local`` is the rank's
+    own rows (the rest are halo).  Yields the list of records."""
     import torch
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
-    from particlesystem_tpu_torch.parallel import nbody_sharded
-    inner = nbody_sharded.neighbor_pass_blocks
+    inner = module.neighbor_pass_blocks
     calls, records = [0], []
 
     def checked(pos0, age0, w0, cell, alive, cfg, tags, dims=None, ids=None):
         if calls[0] in at:
             n = pos0.shape[0]
-            assert torch.unique(ids[alive]).numel() == int(alive.sum()), \
-                "the pass's ids are not unique among its valid rows"
+            if ids is not None:
+                assert torch.unique(ids[alive]).numel() == \
+                    int(alive.sum()), \
+                    "the pass's ids are not unique among its valid rows"
             snap, chunks, *_ = nbk.prepare(pos0, age0, w0, cell, alive, cfg,
                                            tags, dims=dims, ids=ids)
-            rec = dict(call=calls[0], dims=tuple(dims), rows=n,
-                       halo=int(alive[c_local:].sum()),
-                       pad=int((ids == -1).sum()),
-                       in_band=int((snap.f[3] >= 0).sum()), err=None)
+            local = n if c_local is None else c_local
+            rec = dict(call=calls[0], dims=tuple(dims or (cfg.grid.grid_dim,)
+                                                 * 3), rows=n,
+                       halo=int(alive[local:].sum()),
+                       pad=0 if ids is None else int((ids == -1).sum()),
+                       in_band=int((snap.f[3] >= 0).sum()), err=None,
+                       partners=None)
             if pos0.device.type == "cuda":
                 blocks = None
                 if subset:
@@ -1529,16 +1580,24 @@ def sharded_pair_checks(c_local, at, subset=None):
                 rec["err"] = compare_kernel(cfg, snap, chunks, nbk.B, nbk.CH,
                                             blocks)
                 nbk.cluster_pair_cuda.launches = count
+                if dims is None and blocks is not None:
+                    got = listed_partners(snap, chunks, nbk.B, blocks)
+                    want = pair_work(cfg, snap, chunks, nbk.B, blocks)[1]
+                    assert got == want, \
+                        f"pass {calls[0]}: the chunk table lists {got} " \
+                        f"stencil pairs of {subset} blocks, the cells hold " \
+                        f"{want}"
+                    rec["partners"] = got
             records.append(rec)
         calls[0] += 1
         return inner(pos0, age0, w0, cell, alive, cfg, tags, dims=dims,
                      ids=ids)
 
-    nbody_sharded.neighbor_pass_blocks = checked
+    module.neighbor_pass_blocks = checked
     try:
         yield records
     finally:
-        nbody_sharded.neighbor_pass_blocks = inner
+        module.neighbor_pass_blocks = inner
 
 
 def pair_check_text(records) -> str:
@@ -1547,6 +1606,8 @@ def pair_check_text(records) -> str:
         f"valid halo rows, {r['pad']} padding rows of id -1, {r['in_band']} "
         f"in band), " + ("no kernel on the CPU" if r["err"] is None else
                          f"gmax exact, acc max abs err {r['err']:.3e}")
+        + ("" if r["partners"] is None else
+           f", the chunk table lists all {r['partners']} stencil pairs")
         for r in records)
 
 
@@ -1560,14 +1621,15 @@ def rank_nbody(rank, group, cfg, spec, frames, timed, device):
     import torch
     from particlesystem_tpu_torch.core.state import state_to_numpy
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
+    from particlesystem_tpu_torch.parallel import nbody_sharded
     from particlesystem_tpu_torch.parallel.driver import (
         DistributedNBodySimulation)
     dev = torch.device(device)
     nbk.cluster_pair_cuda.launches = 0
     sim = DistributedNBodySimulation(cfg, spec, group=group, device=dev)
     out = []
-    with sharded_pair_checks(cfg.slots // group.size(),
-                             at=(0, frames - 1)) as checks:
+    with pair_checks(nbody_sharded, (0, frames - 1),
+                     cfg.slots // group.size()) as checks:
         for _ in range(frames):
             stats = sim.run(1, batch=1)
             out.append((stats, _alive_rows(state_to_numpy(sim.gather()))))
@@ -1649,7 +1711,7 @@ def phase_sharded_one_rank(dev, cfg=None):
     from particlesystem_tpu_torch.core.state import FIELDS
     from particlesystem_tpu_torch.models import nbody
     from particlesystem_tpu_torch.parallel import (DistributedNBodySimulation,
-                                                   SlabSpec)
+                                                   SlabSpec, nbody_sharded)
     from particlesystem_tpu_torch.parallel.mesh import free_port
 
     cfg = cfg or NBodyConfig()
@@ -1665,8 +1727,8 @@ def phase_sharded_one_rank(dev, cfg=None):
         sim = DistributedNBodySimulation(cfg, spec, group=group, device=dev)
         start = sim.state.map(lambda a: a.clone())
         reset_launches()
-        with sharded_pair_checks(cfg.slots, at=(0,),
-                                 subset=SUBSET_BLOCKS) as checks:
+        with pair_checks(nbody_sharded, (0,), cfg.slots,
+                         SUBSET_BLOCKS) as checks:
             first = sim.run(SHARDED_ITERS)
         assert [r["call"] for r in checks] == [0], checks
         n_launch_first = launches()["cluster_pair"]
@@ -1874,6 +1936,239 @@ def phase_sharded_emitter(dev, slots=EMIT_SLOTS, dp_slots=DP_SLOTS):
           f"spawn")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the bench, the entry functions, the launcher, the tools
+# ---------------------------------------------------------------------------
+
+# the bench's stages at cut counts: {stage: keyword arguments}
+BENCH_CUT = {
+    "cap_10m": dict(capacity=EMIT_SLOTS, k_short=16, k_long=64, reps=2),
+    "cap_1m": dict(capacity=1 << 20, k_short=64, k_long=256, reps=2),
+    "nbody_1m": dict(n_fill=1 << 20, grid_dim=16, k_short=2, k_long=6,
+                     reps=2),
+    "nbody_sharded_d1": dict(n_fill=1 << 20, grid_dim=16, k_short=2,
+                             k_long=6, reps=1),
+    "nbody_10m": dict(n_fill=10 << 20, grid_dim=32, k_short=2, k_long=6,
+                      reps=1),
+}
+#: live blocks of a bench pass held against the plain version
+BENCH_CHECK_BLOCKS = 256
+CLI_ITERS = 3
+CLI_ARGS = ("nbody", "--devices", "2", "--particles", "2000", "--grid-dim",
+            "16", "--iterations", str(CLI_ITERS), "--validate")
+#: the CLI's own ``main``, then this rank's pair-kernel launches
+CLI_MAIN = ("import sys\n"
+            "from particlesystem_tpu_torch.__main__ import main\n"
+            "from particlesystem_tpu_torch.ops import neighbor_blocks\n"
+            "main(sys.argv[1:])\n"
+            "print('pair launches', neighbor_blocks.cluster_pair_cuda."
+            "launches)\n")
+
+
+def bench_passes(name: str, kw: dict) -> int:
+    """Neighbour passes of an n-body bench stage at the counts ``kw``: the
+    warm-up, then ``reps`` short and long batches."""
+    from particlesystem_tpu_torch import bench
+    warm = kw["k_short"] if name == "nbody_sharded_d1" else bench.WARM_FRAMES
+    return warm + kw["reps"] * (kw["k_short"] + kw["k_long"])
+
+
+def bench_stage_fns(dev, cut=None, checks=None):
+    """{stage: thunk} of the bench at the counts of ``cut``.  With
+    ``checks`` (a dict), each n-body stage runs under :func:`pair_checks`
+    on its first and last pass, on :data:`BENCH_CHECK_BLOCKS` live blocks,
+    and leaves its records in ``checks[stage]``."""
+    from particlesystem_tpu_torch import bench
+    from particlesystem_tpu_torch.core.config import GridSpec, NBodyConfig
+    from particlesystem_tpu_torch.models import nbody
+    from particlesystem_tpu_torch.parallel import nbody_sharded
+    fns = {"cap_10m": bench.bench_capacity, "cap_1m": bench.bench_capacity,
+           "nbody_1m": bench.bench_nbody,
+           "nbody_sharded_d1": bench.bench_nbody_sharded_d1,
+           "nbody_10m": bench.bench_nbody}
+    cut = cut or BENCH_CUT
+
+    def stage(name, kw):
+        if checks is None or not name.startswith("nbody"):
+            return fns[name](device=dev, **kw)
+        last = bench_passes(name, kw) - 1
+        sharded = name == "nbody_sharded_d1"
+        slots = NBodyConfig(n_fill=kw["n_fill"],
+                            grid=GridSpec(grid_dim=kw["grid_dim"])).slots
+        with pair_checks(nbody_sharded if sharded else nbody, (0, last),
+                         slots if sharded else None,
+                         BENCH_CHECK_BLOCKS) as recs:
+            out = fns[name](device=dev, **kw)
+        assert [r["call"] for r in recs] == [0, last], (name, recs)
+        checks[name] = recs
+        return out
+
+    return {name: (lambda name=name, kw=kw: stage(name, kw))
+            for name, kw in cut.items()}
+
+
+def phase_bench(dev, cut=None):
+    """12a: every bench stage at cut counts, through ``bench.run``: the
+    line holds every key, none null on a card; the stages launched both
+    kernels of their paths, the pair kernel once a pass; the first and
+    the last pass of each n-body stage held against the plain version
+    (the launches of that check not counted).  Returns (the line, the
+    largest acc error of those checks)."""
+    import io
+
+    from particlesystem_tpu_torch import bench
+    cut = cut or BENCH_CUT
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    checks = {}
+    reset_launches()
+    res = bench.run(bench_stage_fns(dev, cut, checks),
+                    card_line() if dev.type == "cuda" else "cpu", out=out)
+    counts = launches()
+    printed = json.loads(out.getvalue().splitlines()[-1])
+    assert printed == res and set(res) == set(bench.empty_line("")), res
+    passes = sum(bench_passes(name, kw) for name, kw in cut.items()
+                 if name.startswith("nbody"))
+    if dev.type == "cuda":
+        assert all(v is not None for v in res.values()), res
+        assert counts["cluster_pair"] == passes, (counts, passes)
+        assert counts["physics_step"] > 0, counts
+    err = max([r["err"] or 0.0 for recs in checks.values() for r in recs],
+              default=0.0)
+    print(f"phase 12a: bench stages at cut counts "
+          f"({time.perf_counter() - t0:.1f} s), launches {counts} "
+          f"({passes} n-body passes): {json.dumps(res)}")
+    for name, recs in checks.items():
+        print(f"phase 12a: {name}: the pair kernel vs its plain version on "
+              f"{BENCH_CHECK_BLOCKS} evenly spaced live blocks: "
+              f"{pair_check_text(recs)}")
+    return res, err
+
+
+def phase_entry(dev):
+    """12b: ``entry()``'s frame on the card against the same frame on the
+    CPU (bookkeeping and alive masks exact, fields within 1e-4, as phase
+    6), two frames; then ``dryrun_multichip(8)`` on ``dev``."""
+    import numpy as np
+    from particlesystem_tpu_torch.entry import dryrun_multichip, entry
+    from particlesystem_tpu_torch.runtime.engine import (
+        engine_state_from_numpy, engine_state_to_numpy)
+
+    fn, (es,) = entry(device=dev)
+    fn_cpu, (es_cpu,) = entry(device="cpu")
+    es_cpu = engine_state_from_numpy(engine_state_to_numpy(es), es_cpu)
+    nf = es.n_fields
+    reset_launches()
+    err = 0.0
+    for frame in range(2):
+        es, es_cpu = fn(es), fn_cpu(es_cpu)
+        got, want = engine_state_to_numpy(es), engine_state_to_numpy(es_cpu)
+        for a, b in zip(got[nf:], want[nf:]):
+            assert np.array_equal(a, b), f"entry frame {frame}: bookkeeping"
+        alive = [(f[6] <= f[7]) & (f[7] > 0) for f in (got, want)]
+        assert np.array_equal(*alive), f"entry frame {frame}: alive"
+        for a, b in zip(got[:nf], want[:nf]):
+            np.testing.assert_allclose(a, b, rtol=TRAJ_TOL, atol=TRAJ_TOL)
+            err = max(err, float(np.abs(a - b).max()))
+    n = launches()["physics_step"]
+    assert n == (2 if dev.type == "cuda" else 0), n
+    print(f"phase 12b: entry() 2 frames on {dev} == cpu (bookkeeping and "
+          f"alive exact, fields within {TRAJ_TOL}: max abs err {err:.3e}), "
+          f"alive {int(alive[0].sum())}, physics launches {n}")
+    t0 = time.perf_counter()
+    stats = dryrun_multichip(8, device=dev)
+    print(f"phase 12b: dryrun_multichip(8) on {dev} over gloo "
+          f"({time.perf_counter() - t0:.1f} s with the spawn): "
+          + "; ".join(f"{k} alive {v['n_alive']} spawned {v['n_spawned']} "
+                      f"capped {v['n_spawn_capped']} pair launches a rank "
+                      f"{v['pair_launches']}"
+                      for k, v in stats.items()))
+    for name, v in stats.items():
+        assert v["n_alive"] > 0 and v["n_spawn_capped"] == 0, (name, v)
+        assert v["pair_launches"] == (1 if dev.type == "cuda" else 0), \
+            (name, v)
+
+
+def launch_cli(device: str, tmp: str, tag: str):
+    """Two processes of the CLI under the ``PSTPU_*`` launcher variables,
+    each writing to its own file (a rank whose pipe filled would stall the
+    other in a collective); returns each rank's output and its pair-kernel
+    launches.  Both are killed at the time limit."""
+    import os
+
+    from particlesystem_tpu_torch.parallel.mesh import free_port
+    port = free_port()
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("PSTPU_", "LOCAL_"))}
+    logs = [os.path.join(tmp, f"{tag}_rank{pid}.log") for pid in range(2)]
+    procs = []
+    try:
+        for pid, log in enumerate(logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", CLI_MAIN, *CLI_ARGS, "--device",
+                     device, "--save", os.path.join(tmp, tag)],
+                    stdout=f, stderr=subprocess.STDOUT,
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    env=dict(base, PSTPU_COORDINATOR=f"127.0.0.1:{port}",
+                             PSTPU_NUM_PROCESSES="2",
+                             PSTPU_PROCESS_ID=str(pid),
+                             LOCAL_WORLD_SIZE="2")))
+        deadline = time.monotonic() + SPAWN_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = [open(log).read() for log in logs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, f"--device {device}:\n{out[-3000:]}"
+    counts = []
+    for out in outs:
+        line = [l for l in out.splitlines() if l.startswith("pair launches")]
+        assert line, out[-3000:]
+        counts.append(int(line[-1].split()[-1]))
+    return outs, counts
+
+
+def phase_cli_launcher(devices):
+    """12c: ``nbody --devices 2 --validate --save`` as 2 processes under
+    the ``PSTPU_*`` variables, for each of ``devices`` (gloo); on a card
+    each rank launched the pair kernel at least once a frame."""
+    import tempfile
+    for device in devices:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            outs, counts = launch_cli(device, tmp, "run")
+        lines = outs[0].splitlines()
+        line = [l for l in lines if l.startswith("validate")]
+        assert line and "'events_match': True" in line[0], outs[0][-3000:]
+        final = [l for l in lines if l.startswith("final:")]
+        if device.startswith("cuda"):
+            assert all(n >= CLI_ITERS for n in counts), counts
+        else:
+            assert counts == [0, 0], counts
+        print(f"phase 12c: CLI on 2 launched processes, --device {device}: "
+              f"{final[0]}; {line[0]}; pair launches by rank {counts} "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_tools(dev, ckpt_args=(), batched_args=()):
+    """12d: ``tools.measure_ckpt_10m`` and ``tools.measure_batched_run``
+    once each."""
+    from particlesystem_tpu_torch.tools import (measure_batched_run,
+                                                measure_ckpt_10m)
+    dev_arg = ["--device", str(dev)]
+    ck = measure_ckpt_10m.main(list(ckpt_args) + dev_arg)
+    assert ck["n_dropped_on_load"] == 0, ck
+    print(f"phase 12d: measure_ckpt_10m: {json.dumps(ck)}")
+    br = measure_batched_run.main(list(batched_args) + dev_arg)
+    print(f"phase 12d: measure_batched_run: {json.dumps(br)}")
+    return ck, br
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1906,6 +2201,10 @@ def main() -> int:
     sharded = [phase_sharded_one_rank(dev)]
     sharded += phase_sharded_ranks(dev).values()
     phase_sharded_emitter(dev)
+    _, bench_err = phase_bench(dev)
+    phase_entry(dev)
+    phase_cli_launcher(("cuda:0", "cpu"))
+    phase_tools(dev)
 
     kernels = [{
         "name": "cluster_pair",
@@ -1913,7 +2212,7 @@ def main() -> int:
         "source": "particlesystem_tpu_torch/csrc/neighbor_blocks.cu",
         "replaces": "particlesystem_tpu/ops/neighbor_blocks.py:296",
         "launches": main_path["launches"],
-        "max_abs_err": max([worst, main_path["err"]]
+        "max_abs_err": max([worst, main_path["err"], bench_err]
                            + [r["err"] for r in sharded]),
         "ms": main_path["plateau"]["ms"],
         "plain_ms": main_path["plateau"]["plain_ms"],

@@ -14,9 +14,17 @@ process each.  Under a launcher (``PSTPU_COORDINATOR``,
 ``PSTPU_NUM_PROCESSES`` and ``PSTPU_PROCESS_ID`` set, see
 ``parallel/mesh.py``) this process is one rank; otherwise it spawns the D
 ranks itself over localhost.  ``--device cuda`` gives each rank its own card,
-``cuda:{LOCAL_RANK}`` (rank r of a local spawn: ``cuda:r``), over NCCL; a
+``cuda:{local rank}`` (rank r of a local spawn: ``cuda:r``; under a launcher
+``LOCAL_RANK``, else ``PSTPU_PROCESS_ID % LOCAL_WORLD_SIZE``), over NCCL; a
 device with an index (``cuda:0``) or ``cpu`` is shared by every rank, over
-gloo.
+gloo.  ``--validate`` on several ranks writes its scratch files next to
+``--save`` (else in the temp dir): a run across nodes needs a ``--save``
+directory on a filesystem every rank shares.
+
+    python -m particlesystem_tpu_torch bench
+
+runs the benchmark stages on the card and prints one JSON line
+(``particlesystem_tpu_torch/bench.py``).
 """
 
 from __future__ import annotations
@@ -52,16 +60,16 @@ def _run_nbody_sharded(args, cfg):
     from .parallel import mesh as meshmod
     from .parallel.driver import cli_rank
 
-    group = meshmod.maybe_init_distributed()
+    backend = meshmod.device_backend(args.device)
+    group = meshmod.maybe_init_distributed(backend=backend)
     if group is not None or args.devices == 1:
         cli_rank(0 if group is None else dist.get_rank(group), group, args,
                  cfg)
         return
-    own_cards = args.device == "cuda"
     options = argparse.Namespace(**{k: v for k, v in vars(args).items()
                                     if k != "fn"})  # what pickles
-    meshmod.spawn(cli_rank, args.devices, (options, cfg),
-                  backend="nccl" if own_cards else "gloo", timeout=math.inf)
+    meshmod.spawn(cli_rank, args.devices, (options, cfg), backend=backend,
+                  timeout=math.inf)
 
 
 def _cmd_demo(args):
@@ -79,6 +87,12 @@ def _cmd_demo(args):
         ps.step(chunk)
         print(f"frame {ps.frame}: alive {ps.alive_count()}")
     print(ps.timers.report())
+
+
+def _cmd_bench(args):
+    from . import bench
+
+    bench.main()
 
 
 def main(argv=None):
@@ -113,7 +127,10 @@ def main(argv=None):
                    help="write a checkpoint here after the run")
     p.add_argument("--validate", action="store_true",
                    help="compare the step against the numpy oracle after "
-                        "the run")
+                        "the run; on several ranks its scratch files go "
+                        "next to --save (else the temp dir), so a run "
+                        "across nodes needs a --save directory on a "
+                        "filesystem every rank shares")
     p.set_defaults(fn=_cmd_nbody)
 
     p = sub.add_parser("demo", help="run an emitter demo scene")
@@ -128,6 +145,12 @@ def main(argv=None):
                    help="torch device (cuda needs a card; cpu runs the "
                         "kernels' plain versions)")
     p.set_defaults(fn=_cmd_demo)
+
+    p = sub.add_parser("bench", help="run the benchmark stages (cap_10m, "
+                                     "cap_1m, nbody_1m, nbody_sharded_d1, "
+                                     "nbody_10m) on the card and print one "
+                                     "JSON line")
+    p.set_defaults(fn=_cmd_bench)
 
     args = parser.parse_args(argv)
     args.fn(args)

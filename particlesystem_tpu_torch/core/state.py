@@ -56,6 +56,11 @@ class ParticleState:
     def device(self) -> torch.device:
         return self.pos.device
 
+    @property
+    def num_alive(self) -> torch.Tensor:
+        """Alive rows, as a 0-dim int32 device tensor."""
+        return self.alive.sum(dtype=torch.int32)
+
     def to(self, device) -> "ParticleState":
         return self.map(lambda a: a.to(device))
 

@@ -29,6 +29,7 @@ provides:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -385,13 +386,44 @@ def cli_rank(rank, group, args, cfg):
     say(f"final: alive={stats['n_alive']} "
         f"degraded_batches={sim.n_degraded_frames}")
     if args.validate:
-        import tempfile
-        out = sim.validate(scratch_dir=tempfile.gettempdir())
-        say(f"validate (rank 0's rows): {out}")
+        parent = (os.path.dirname(os.path.abspath(args.save)) if args.save
+                  else None)
+        with shared_scratch(group, parent) as scratch:
+            out = sim.validate(scratch_dir=scratch)
+        say(f"validate (rank 0's rows, scratch {scratch}): {out}")
     if args.save:
         sim.save(args.save)
         say(f"sharded checkpoint written to {args.save}")
     say(sim.timers.report())
+
+
+@contextlib.contextmanager
+def shared_scratch(group, parent: Optional[str] = None):
+    """A fresh directory for one collective use, the same on every rank of
+    ``group`` (None: a lone process): rank 0 makes it in ``parent`` (the
+    temp dir when None) and sends its name to the others.  On exit, once
+    every rank is done with it, rank 0 removes it.  Across nodes ``parent``
+    must be on a filesystem every rank shares."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    rank = 0 if group is None else dist.get_rank(group)
+    name = [None]
+    if rank == 0:
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        name[0] = tempfile.mkdtemp(prefix="pstpu_scratch_", dir=parent)
+    if group is not None:
+        dist.broadcast_object_list(name, src=dist.get_global_rank(group, 0),
+                                   group=group)
+    try:
+        yield name[0]
+    finally:
+        checkpoint._barrier(group)  # every rank is done with it
+        if rank == 0:
+            shutil.rmtree(name[0], ignore_errors=True)
 
 
 def _alive_rows_by_tag(state: ParticleState):

@@ -28,6 +28,10 @@ package reaches for an implicit default group).
 * :func:`spawn` runs ``fn(rank, group, *args)`` in ``world_size`` fresh
   processes over a localhost group, with a timeout on every wait; rank r
   sees ``LOCAL_RANK=r``, so by default it computes on ``cuda:r``.
+* Under a launcher (:func:`maybe_init_distributed`) a rank's card is
+  ``cuda:{local_rank()}``: ``LOCAL_RANK`` when the launcher sets it, else
+  the rank's place in its node of ``LOCAL_WORLD_SIZE`` ranks;
+  :func:`device_backend` picks the group's backend from the device.
 """
 
 from __future__ import annotations
@@ -54,10 +58,17 @@ def maybe_init_distributed(backend: Optional[str] = None,
     hostfile role): ``PSTPU_COORDINATOR`` (``host:port`` of rank 0),
     ``PSTPU_NUM_PROCESSES`` and ``PSTPU_PROCESS_ID``.  Returns the process
     group to pass on, or None when the variables are not set (a lone
-    process).  ``backend`` defaults to NCCL where torch sees a card."""
+    process).  ``backend`` defaults to NCCL where torch sees a card; a
+    caller that knows its ranks' device passes :func:`device_backend` of
+    it (the CLI does).  With ``LOCAL_WORLD_SIZE`` set, the ranks of a node
+    share its cores: each takes cores / ``LOCAL_WORLD_SIZE`` threads, as
+    :func:`spawn`'s ranks do."""
     coord = os.environ.get("PSTPU_COORDINATOR")
     if not coord:
         return None
+    if "LOCAL_WORLD_SIZE" in os.environ:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // int(os.environ["LOCAL_WORLD_SIZE"])))
     backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
     dist.init_process_group(
         backend, init_method=f"tcp://{coord}",
@@ -66,18 +77,44 @@ def maybe_init_distributed(backend: Optional[str] = None,
     return dist.group.WORLD
 
 
+def device_backend(device) -> str:
+    """The process-group backend for ranks that compute on ``device``:
+    NCCL when each rank has a card of its own (``cuda`` without an index),
+    gloo when the ranks share one device (``cuda:N`` or ``cpu``; NCCL
+    refuses two ranks on one card)."""
+    dev = torch.device(device)
+    return "nccl" if dev.type == "cuda" and dev.index is None else "gloo"
+
+
+def local_rank() -> int:
+    """This process's rank within its node: ``LOCAL_RANK`` when set (as
+    :func:`spawn` and ``torchrun`` set it), else ``PSTPU_PROCESS_ID %
+    LOCAL_WORLD_SIZE`` when ``LOCAL_WORLD_SIZE`` is set (nodes are
+    contiguous blocks of ranks), else 0 for a lone process.  Raises for a
+    process of a larger launch that neither variable places."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    pid = int(os.environ.get("PSTPU_PROCESS_ID", 0))
+    if "LOCAL_WORLD_SIZE" in os.environ:
+        return pid % int(os.environ["LOCAL_WORLD_SIZE"])
+    if int(os.environ.get("PSTPU_NUM_PROCESSES", 1)) > 1:
+        raise RuntimeError(
+            "cannot place this rank on a card: set LOCAL_RANK (its index "
+            "among the processes of its node) or LOCAL_WORLD_SIZE (the "
+            "processes a node runs; ranks are numbered node by node), or "
+            "give every rank one shared device (cuda:N or cpu)")
+    return 0
+
+
 def rank_device(device=None) -> torch.device:
     """The device a rank computes on, made the current CUDA device (NCCL
     wants it so): ``device`` when given (ranks then share it if the caller
-    says so; ``cuda`` without an index is ``cuda:{LOCAL_RANK}``), else
-    ``cuda:{LOCAL_RANK}``.  Raises when that card does not exist: ranks
+    says so; ``cuda`` without an index is ``cuda:{local_rank()}``), else
+    ``cuda:{local_rank()}``.  Raises when that card does not exist: ranks
     never share a card by default."""
-    if device is not None:
-        dev = torch.device(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-    else:
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", local_rank())
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {dev} requested but torch sees no "

@@ -69,6 +69,12 @@ class EngineState:
     def device(self) -> torch.device:
         return self.fields[0].device
 
+    @property
+    def packed(self) -> torch.Tensor:
+        """(n_fields, ...) stacked copy of the fields, for readback and
+        inspection."""
+        return torch.stack(self.fields)
+
 
 class PackedEngine:
     """Frame loop over per-field SoA state on ``device`` (default: the
