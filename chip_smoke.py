@@ -124,7 +124,20 @@ Phases (any failure raises and exits non-zero):
     as two processes under the ``PSTPU_*`` launcher variables with
     ``--device cuda:0`` (each rank's pair-kernel launches read) and then
     ``--device cpu``; (d) ``tools.measure_ckpt_10m`` and
-    ``tools.measure_batched_run`` once each.
+    ``tools.measure_batched_run`` once each;
+13. the threefry kernel (``csrc/threefry.cu``) against its plain version
+    (``core/rng.py``) bit for bit at full width: the n-body fields of all
+    2,097,152 tags of ``NBodyConfig()``, the 20,971,520 of the 10M stage
+    and phase 4's plateau prefix, each with the edge tags 0, 0x7FFFFFFF,
+    0x80000000 and 0xFFFFFFFF, at frames 0 and 20; the emitter's spawn
+    draws at the bench scene's ``SpawnTable.total``, salts 0 and 3;
+    ``init_fill``'s four draws at 1M; then each timed beside its bound
+    (the instruction rate: 72 instructions a hash), and its SASS counted.
+
+Every path that draws random fields on the card goes through the threefry
+kernel: its launches are read beside the other kernels' in phases 4, 6,
+7, 9, 10, 11 and 12 (once a frame, once an ``init_fill``), and phase 6
+also holds the spawn draws on the card against those on the CPU.
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -158,6 +171,11 @@ ENGINE_PAIRS = (("exact", "packed8", 1), ("exact", "packed8", 4),
                 ("strided", "slim", 1), ("select", "slim", 1))
 STEP_MANY = (64, 512)
 TRAJ_TOL = 1e-4                    # tests/test_pallas_step.py:94
+# kernels and copies a frame in the traces of phases 4 and 7 before the
+# threefry kernel, when the draws were int64 tensor operations (NVIDIA H100
+# 80GB HBM3, 700 W)
+NBODY_KERNELS_BEFORE = 1179
+ENGINE_KERNELS_BEFORE = 415.8
 
 
 def card_line() -> str:
@@ -205,11 +223,14 @@ def _wrappers():
     """{kernel name: the wrapper that counts its launches}."""
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
     from particlesystem_tpu_torch.ops import physics_kernel as pk
+    from particlesystem_tpu_torch.ops import rng_kernel as rk
     from particlesystem_tpu_torch.tools import probe_alu_ops, probe_two_shapes
     return dict(cluster_pair=nbk.cluster_pair_cuda,
                 physics_step=pk.physics_step_cuda,
                 probe_alu_ops=probe_alu_ops.probe_layers_cuda,
-                probe_affine=probe_two_shapes.probe_affine_cuda)
+                probe_affine=probe_two_shapes.probe_affine_cuda,
+                threefry_nbody=rk.nbody_fields_cuda,
+                threefry_flat=rk.flat_fields_cuda)
 
 
 def reset_launches():
@@ -225,6 +246,22 @@ def launches(**expected):
         want = {name: expected.get(name, 0) for name in counts}
         assert counts == want, f"kernel launches {counts}, expected {want}"
     return counts
+
+
+def same_bits(got, want, what) -> float:
+    """Kernel outputs ``got`` equal to the plain version's ``want`` bit for
+    bit (float32 tensors, compared as int32 on the CPU); returns the
+    largest absolute difference, 0."""
+    import torch
+    err = 0.0
+    for a, b in zip(got, want, strict=True):
+        a, b = a.cpu(), b.cpu()
+        assert a.shape == b.shape and torch.equal(
+            a.view(torch.int32), b.view(torch.int32)), \
+            f"{what}: kernel and plain version differ"
+        if a.numel():
+            err = max(err, float((a - b).abs().max()))
+    return err
 
 
 def compare_kernel(cfg, snap, chunks, b, ch, blocks=None):
@@ -487,7 +524,10 @@ def phase_main_path(dev):
     sim.run(MAIN_ITERS, verbose=True)
     end.record()
     torch.cuda.synchronize()
-    n_launch = launches(cluster_pair=2 * MAIN_ITERS)["cluster_pair"]
+    # the threefry kernel: once a frame, and once for init_fill
+    counts = launches(cluster_pair=2 * MAIN_ITERS,
+                      threefry_nbody=2 * MAIN_ITERS, threefry_flat=1)
+    n_launch = counts["cluster_pair"]
     ms_frame = start.elapsed_time(end) / MAIN_ITERS
     peak = torch.cuda.max_memory_allocated()
 
@@ -505,7 +545,9 @@ def phase_main_path(dev):
           f"full width, includes warm-up); frames {MAIN_ITERS + 1}-"
           f"{2 * MAIN_ITERS} {ms_frame:.3f} ms/frame on active prefix "
           f"{active_second or cfg.slots} of {cfg.slots} slots; alive "
-          f"{n_alive}; kernel launches {n_launch}; peak memory "
+          f"{n_alive}; kernel launches {n_launch} (pair), "
+          f"{counts['threefry_nbody']} + {counts['threefry_flat']} "
+          f"(threefry: frames, init_fill); peak memory "
           f"{peak} bytes ({peak / 2**30:.3f} GiB)")
 
     profile_nbody_frame(sim)
@@ -523,7 +565,10 @@ def phase_main_path(dev):
     adult = time_pair_state("adult-heavy (frame 0)", cfg, snap, chunks,
                             int(fresh.alive.sum()), dev)
     return sim, dict(launches=n_launch, plateau=plateau, adult=adult,
-                     err=max(plateau["err"], adult["err"]))
+                     err=max(plateau["err"], adult["err"]),
+                     rng_launches=counts["threefry_nbody"]
+                     + counts["threefry_flat"],
+                     plateau_tags=st.tag[:rows].clone())
 
 
 def profile_nbody_frame(sim, top: int = 4):
@@ -554,12 +599,21 @@ def profile_nbody_frame(sim, top: int = 4):
     print(f"phase 4: frame {sim.frame} under torch.profiler: {wall_ms:.3f} ms "
           f"on the host's clock, {device_ms:.3f} ms of device time "
           f"({device_ms / wall_ms:.1%}) in "
-          f"{sum(n for n, _ in by_name.values())} kernels and copies; "
-          "largest: " + "; ".join(
+          f"{sum(n for n, _ in by_name.values())} kernels and copies "
+          f"({NBODY_KERNELS_BEFORE:,} before the threefry kernel); "
+          f"largest: " + "; ".join(
               f"{name[:48]} x{n} {us / 1e3:.3f} ms"
               for name, (n, us) in largest))
     pair = [us for name, (_, us) in by_name.items() if "cluster_pair" in name]
     assert pair, "the trace holds no cluster-pair kernel"
+    rng = [(n, us) for name, (n, us) in by_name.items()
+           if "nbody_frame_fields" in name]
+    assert rng, "the trace holds no threefry kernel"
+    assert not any("cummax" in name for name in by_name), \
+        "prepare still runs cummax"
+    print(f"phase 4: the threefry kernel in that trace: "
+          f"x{sum(n for n, _ in rng)} {sum(us for _, us in rng) / 1e3:.4f} "
+          f"ms; no cummax")
     print(f"phase 4: the cluster-pair kernel in that trace: "
           f"{sum(pair) / 1e3:.4f} ms")
 
@@ -800,6 +854,9 @@ def engine_alive(eng, fields, frame):
 
 def phase_engine_card_vs_cpu(dev):
     import numpy as np
+    from particlesystem_tpu_torch.models import emitter as em
+    from particlesystem_tpu_torch.models.emitter import SpawnTable
+    from particlesystem_tpu_torch.ops import rng_kernel as rk
     from particlesystem_tpu_torch.runtime.engine import (
         PackedEngine, engine_state_to_numpy)
     cfg = bench_scene(16384)
@@ -828,14 +885,23 @@ def phase_engine_card_vs_cpu(dev):
                 assert (err <= TRAJ_TOL + TRAJ_TOL * np.abs(y)).all(), \
                     f"{alloc}/{layout} frame {frame} field {i}: {err.max()}"
                 worst = max(worst, float(err.max()))
-        launches(physics_step=25)
+        launches(physics_step=25, threefry_flat=25)
         n_alive = int(card.alive_count(sc))
         assert n_alive == int(host.alive_count(sh)) > 0
         print(f"phase 6: {alloc}/{layout} refresh {refresh}: 25 frames card "
               f"== cpu (bookkeeping and alive exact, {n_alive} alive, 25 "
-              f"kernel launches)")
+              f"launches of each kernel)")
     print(f"phase 6: largest field difference {worst:.3e} (limit "
           f"{TRAJ_TOL} + {TRAJ_TOL} * |cpu|)")
+    # the spawn rows' random draws: the kernel on the card, the plain
+    # version on the CPU
+    total = SpawnTable(cfg, "cpu").total
+    for frame in range(25):
+        draws = em.spawn_draws(cfg, frame, 0, total)
+        same_bits(rk.flat_fields(draws, dev), rk.flat_fields(draws, "cpu"),
+                  f"spawn draws of frame {frame}")
+    print(f"phase 6: spawn draws u ({total}, 8) and dirs ({total}, 3) of "
+          f"frames 0-24: card == cpu bit for bit")
 
 
 def check_emitter_state(eng, es, what):
@@ -918,13 +984,15 @@ def phase_emitter_main_path(dev):
     ps.step(60)
     end.record()
     torch.cuda.synchronize()
-    counts = launches(physics_step=120)
+    counts = launches(physics_step=120, threefry_flat=120)
+    counts_main = counts["threefry_flat"]
     n_alive = check_emitter_state(ps._engine, ps._es, "ParticleSystem")
     assert n_alive == ps.alive_count() > 0
     print(f"phase 7: ParticleSystem {EMIT_SLOTS} slots, select/packed8: "
           f"frames 1-60 {first_s:.3f} s (first call); frames 61-120 "
           f"{start.elapsed_time(end) / 60:.4f} ms/frame; alive {n_alive}; "
-          f"kernel launches {counts['physics_step']}; peak memory "
+          f"kernel launches {counts['physics_step']} (physics), "
+          f"{counts['threefry_flat']} (threefry); peak memory "
           f"{torch.cuda.max_memory_allocated()} bytes")
 
     # bench.py:80-119: the engine from an all-alive state
@@ -946,7 +1014,7 @@ def phase_emitter_main_path(dev):
                 torch.cuda.synchronize()
                 ms[k] = start.elapsed_time(end) / k
                 frames += k
-            counts = launches(physics_step=frames)
+            counts = launches(physics_step=frames, threefry_flat=frames)
             n_alive = check_emitter_state(eng, es, f"{n} {alloc}/{layout}")
             assert n_alive == int(eng.alive_count(es)) > 0
             short, long_ = STEP_MANY
@@ -954,13 +1022,16 @@ def phase_emitter_main_path(dev):
                     f"{ms[short]:.4f} ms/frame over {short} frames, "
                     f"{ms[long_]:.4f} over {long_}; "
                     f"{n / ms[long_] * 1e3:.4e} particle-steps/s; "
-                    f"launches {counts['physics_step']} "
+                    f"launches {counts['physics_step']} (physics), "
+                    f"{counts['threefry_flat']} (threefry) "
                     f"for {frames} frames; alive {n_alive}; peak memory "
                     f"{torch.cuda.max_memory_allocated()} bytes")
             if (alloc, layout) == ENGINE_RUNS[0]:
                 es, kernels, moves, busy = profile_frames(eng, es, 8)
                 line += (f"; profiler: {kernels:.1f} kernels and {moves:.1f} "
-                         f"copies/sets a frame, device busy {busy:.1%}")
+                         f"copies/sets a frame ({ENGINE_KERNELS_BEFORE} "
+                         f"kernels before the threefry kernel), device "
+                         f"busy {busy:.1%}")
             print(line)
             del es, eng
 
@@ -999,7 +1070,7 @@ def phase_emitter_main_path(dev):
                       f"{t_bound / min(k1, k2):.1%} of it by launches, "
                       f"{t_bound / dev_ms:.1%} in the graph")
     main = timings[(EMIT_SLOTS, "packed8 + window")]
-    return dict(launches=120, **main)
+    return dict(launches=120, rng_launches=counts_main, **main)
 
 
 # ---------------------------------------------------------------------------
@@ -1242,13 +1313,14 @@ def phase_dense_vs_blocks(sim):
     width = sim._pick_width(int(sim.last_stats.max_cell_occupancy))
     reset_launches()
     blocks, bst = nbody.step(sim.state, frame, cfg, "blocks", active)
-    launches(cluster_pair=1)
+    launches(cluster_pair=1, threefry_nbody=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dense_step = lambda: nbody.step(sim.state, frame, cfg, "dense", active,
                                     width)
     dense, dst = dense_step()
-    launches(cluster_pair=1)             # the dense pass launches no kernel
+    # the dense pass launches no pair kernel
+    launches(cluster_pair=1, threefry_nbody=2)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     # as in the JAX package, the blocks pass counts a chunk's rows before
@@ -1388,7 +1460,7 @@ def phase_readback(dev):
         assert torch.equal(torch.from_numpy(got).to(dev), kept.pop(i - 1)), \
             f"popped frame {i - 1} differs from packed()"
         checked += 1
-    launches(physics_step=n)
+    launches(physics_step=n, threefry_flat=n)
     assert (rb.published, rb.dropped) == (n - 1, 0), \
         (rb.published, rb.dropped)
     rb.flush()
@@ -1616,16 +1688,17 @@ def rank_nbody(rank, group, cfg, spec, frames, timed, device):
     one (statistics and the gathered alive rows), the pair kernel held
     against its plain version on the first and the last of those frames'
     passes, then ``timed`` frames in one batch; rank 0 returns the frames,
-    ms/frame, bytes staged through the host a frame, its kernel launches
-    and its kernel checks."""
+    ms/frame, bytes staged through the host a frame, its launches of the
+    pair and the threefry kernel in those frames and its kernel checks."""
     import torch
     from particlesystem_tpu_torch.core.state import state_to_numpy
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
+    from particlesystem_tpu_torch.ops import rng_kernel as rk
     from particlesystem_tpu_torch.parallel import nbody_sharded
     from particlesystem_tpu_torch.parallel.driver import (
         DistributedNBodySimulation)
     dev = torch.device(device)
-    nbk.cluster_pair_cuda.launches = 0
+    nbk.cluster_pair_cuda.launches = rk.nbody_fields_cuda.launches = 0
     sim = DistributedNBodySimulation(cfg, spec, group=group, device=dev)
     out = []
     with pair_checks(nbody_sharded, (0, frames - 1),
@@ -1635,7 +1708,7 @@ def rank_nbody(rank, group, cfg, spec, frames, timed, device):
             out.append((stats, _alive_rows(state_to_numpy(sim.gather()))))
     assert [r["call"] for r in checks] == [0, frames - 1], checks
     assert all(r["halo"] > 0 and r["in_band"] > 0 for r in checks), checks
-    launches = nbk.cluster_pair_cuda.launches
+    launches = (nbk.cluster_pair_cuda.launches, rk.nbody_fields_cuda.launches)
     staged = sim.mesh.staged_bytes
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -1650,17 +1723,20 @@ def rank_nbody(rank, group, cfg, spec, frames, timed, device):
 
 def rank_emitter(rank, group, cfg, frames, device):
     """One rank of the data-parallel emitter: its leaves after ``frames``
-    frames, its engine's physics launches and the psum'd alive count."""
+    frames, its engine's physics and threefry launches and the psum'd
+    alive count."""
     import torch
     from particlesystem_tpu_torch.ops import physics_kernel as pk
+    from particlesystem_tpu_torch.ops import rng_kernel as rk
     from particlesystem_tpu_torch.parallel import ShardedEmitterEngine, mesh
     from particlesystem_tpu_torch.runtime.engine import engine_state_to_numpy
-    pk.physics_step_cuda.launches = 0
+    pk.physics_step_cuda.launches = rk.flat_fields_cuda.launches = 0
     eng = ShardedEmitterEngine(cfg, mesh.mesh_1d(group.size(), "x", group),
                                alloc="select", layout="packed8",
                                device=torch.device(device))
     es = eng.step_many(eng.init(), frames)
-    return (engine_state_to_numpy(es), pk.physics_step_cuda.launches,
+    return (engine_state_to_numpy(es), (pk.physics_step_cuda.launches,
+                                        rk.flat_fields_cuda.launches),
             eng.alive_count(es))
 
 
@@ -1731,7 +1807,7 @@ def phase_sharded_one_rank(dev, cfg=None):
                          SUBSET_BLOCKS) as checks:
             first = sim.run(SHARDED_ITERS)
         assert [r["call"] for r in checks] == [0], checks
-        n_launch_first = launches()["cluster_pair"]
+        first_counts = launches()
         at10 = sim.state.map(lambda a: a.clone())
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "slab_d1")
@@ -1746,14 +1822,16 @@ def phase_sharded_one_rank(dev, cfg=None):
                 lambda: runs.append(sim.run(SHARDED_ITERS)), dev
             ) / SHARDED_ITERS
             second = runs[0]
-            n_launch = n_launch_first + launches()["cluster_pair"]
+            second_counts = launches()
+            n_launch, n_rng = (first_counts[k] + second_counts[k]
+                               for k in ("cluster_pair", "threefry_nbody"))
             peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
                     else 0)
             # (none on the CPU, where the phase is rehearsed small)
-            assert n_launch == (2 * SHARDED_ITERS if dev.type == "cuda"
-                                else 0), \
-                f"{n_launch} pair-kernel launches in {2 * SHARDED_ITERS} " \
-                f"frames"
+            assert n_launch == n_rng == (2 * SHARDED_ITERS
+                                         if dev.type == "cuda" else 0), \
+                f"{n_launch} pair-kernel and {n_rng} threefry launches in " \
+                f"{2 * SHARDED_ITERS} frames"
             resumed = DistributedNBodySimulation(cfg, spec, group=group,
                                                  device=dev)
             t0 = time.perf_counter()
@@ -1798,7 +1876,8 @@ def phase_sharded_one_rank(dev, cfg=None):
               f"slots, impl=blocks over a one-rank {backend} group: "
               f"{2 * SHARDED_ITERS} frames bit-identical to the "
               f"single-device full-width step (state and stats), alive "
-              f"{second['n_alive']}; pair-kernel launches {n_launch}; frames "
+              f"{second['n_alive']}; pair-kernel launches {n_launch}, "
+              f"threefry launches {n_rng}; frames "
               f"{SHARDED_ITERS + 1}-{2 * SHARDED_ITERS} {ms_sharded:.3f} "
               f"ms/frame sharded (CUDA events around run({SHARDED_ITERS})) "
               f"beside {ms_single:.3f} ms/frame single-device full width "
@@ -1832,7 +1911,7 @@ def phase_sharded_ranks(dev):
     out = {}
     for name, ws, spec, frames in multi_runs():
         t0 = time.perf_counter()
-        got, ms, staged, n_launch, checks = spawn(
+        got, ms, staged, (n_launch, n_rng), checks = spawn(
             rank_nbody, ws, (cfg, spec, frames, MULTI_TIMED, str(dev)),
             backend="gloo", timeout=SPAWN_TIMEOUT)[0]
         wall = time.perf_counter() - t0
@@ -1854,14 +1933,15 @@ def phase_sharded_ranks(dev):
         assert migrated > 0, f"{name}: no particle migrated"
         if spec.splits()[0].halo == MULTI_SLAB_HALO:
             assert all(r["pad"] > 0 for r in checks), (name, checks)
-        assert n_launch == (frames if dev.type == "cuda" else 0), \
-            (name, n_launch)
+        assert n_launch == n_rng == (frames if dev.type == "cuda" else 0), \
+            (name, n_launch, n_rng)
         print(f"phase 11b: {name} on {ws} ranks sharing {dev} over gloo, "
               f"{cfg.n_fill} particles, {cfg.slots} slots: {frames} frames "
               f"equal to the single-device run (stats, tag multisets; "
               f"floats by the chaotic rule), no halo or migration drop, "
               f"{migrated} migrants at the busiest rank summed over the "
-              f"frames; rank 0 launched the pair kernel {n_launch} times; "
+              f"frames; rank 0 launched the pair kernel {n_launch} times "
+              f"and the threefry kernel {n_rng}; "
               f"{MULTI_TIMED} more frames {ms:.3f} ms/frame with "
               f"{staged:.0f} bytes staged through the host a frame at rank "
               f"0; {wall:.1f} s with the spawn")
@@ -1892,19 +1972,21 @@ def phase_sharded_emitter(dev, slots=EMIT_SLOTS, dp_slots=DP_SLOTS):
     sharded = ShardedEmitterEngine(cfg, mesh_1d(1), alloc="select",
                                    layout="packed8", device=dev)
     es = sharded.step_many(sharded.init(), DP_FRAMES)
-    n_launch = launches()["physics_step"]
+    n_launch, n_rng = (launches()[k] for k in ("physics_step",
+                                               "threefry_flat"))
     plain = PackedEngine(cfg, alloc="select", layout="packed8", device=dev)
     ps = plain.step_many(plain.init(), DP_FRAMES)
     a, b = engine_state_to_numpy(es), engine_state_to_numpy(ps)
     assert all(np.array_equal(x, y) for x, y in zip(a, b)), \
         "one-rank emitter differs from PackedEngine"
     on_card = dev.type == "cuda"
-    assert n_launch == (DP_FRAMES if on_card else 0), n_launch
+    assert n_launch == n_rng == (DP_FRAMES if on_card else 0), \
+        (n_launch, n_rng)
     alive = sharded.alive_count(es)
     print(f"phase 11c: emitter on one rank, {cfg.slots} slots, "
           f"select/packed8: {DP_FRAMES} frames bit for bit PackedEngine "
           f"(fields and bookkeeping), alive {alive}, physics launches "
-          f"{n_launch}")
+          f"{n_launch}, threefry launches {n_rng}")
     del sharded, es, plain, ps, a, b
 
     cfg = bench_scene(dp_slots)
@@ -1922,7 +2004,7 @@ def phase_sharded_emitter(dev, slots=EMIT_SLOTS, dp_slots=DP_SLOTS):
         want = engine_state_to_numpy(s)
         assert all(np.array_equal(x, y) for x, y in zip(leaves, want)), \
             f"rank {salt} differs from the local engine salted {salt}"
-        assert n == (DP_FRAMES if on_card else 0), n
+        assert n == ((DP_FRAMES,) * 2 if on_card else (0, 0)), n
         total += int(local.alive_count(s))
         assert alive == ranks[0][2]
     assert ranks[0][2] == total > 0
@@ -1932,7 +2014,8 @@ def phase_sharded_emitter(dev, slots=EMIT_SLOTS, dp_slots=DP_SLOTS):
     print(f"phase 11c: emitter on 2 ranks sharing {dev} over gloo, "
           f"{cfg.slots} slots: {DP_FRAMES} frames of each rank bit for bit "
           f"the local engine salted with its index, alive {total} (psum), "
-          f"{ranks[0][1]} physics launches a rank; {wall:.1f} s with the "
+          f"{ranks[0][1]} physics and threefry launches a rank; "
+          f"{wall:.1f} s with the "
           f"spawn")
 
 
@@ -1971,6 +2054,13 @@ def bench_passes(name: str, kw: dict) -> int:
     from particlesystem_tpu_torch import bench
     warm = kw["k_short"] if name == "nbody_sharded_d1" else bench.WARM_FRAMES
     return warm + kw["reps"] * (kw["k_short"] + kw["k_long"])
+
+
+def emitter_frames(kw: dict) -> int:
+    """Frames of an emitter bench stage at the counts ``kw``: a short and a
+    long batch to warm up, ``soak`` long ones, then ``reps`` of each."""
+    short, long_ = kw["k_short"], kw["k_long"]
+    return (1 + kw["reps"]) * (short + long_) + kw.get("soak", 0) * long_
 
 
 def bench_stage_fns(dev, cut=None, checks=None):
@@ -2029,10 +2119,16 @@ def phase_bench(dev, cut=None):
     assert printed == res and set(res) == set(bench.empty_line("")), res
     passes = sum(bench_passes(name, kw) for name, kw in cut.items()
                  if name.startswith("nbody"))
+    nbody_stages = sum(name.startswith("nbody") for name in cut)
+    frames = sum(emitter_frames(kw) for name, kw in cut.items()
+                 if name.startswith("cap"))
     if dev.type == "cuda":
         assert all(v is not None for v in res.values()), res
-        assert counts["cluster_pair"] == passes, (counts, passes)
-        assert counts["physics_step"] > 0, counts
+        # the threefry kernel: once a pass and a frame, once an init_fill
+        assert (counts["cluster_pair"], counts["threefry_nbody"],
+                counts["physics_step"], counts["threefry_flat"]) == (
+            passes, passes, frames, frames + nbody_stages), (
+                counts, passes, frames)
     err = max([r["err"] or 0.0 for recs in checks.values() for r in recs],
               default=0.0)
     print(f"phase 12a: bench stages at cut counts "
@@ -2070,11 +2166,12 @@ def phase_entry(dev):
         for a, b in zip(got[:nf], want[:nf]):
             np.testing.assert_allclose(a, b, rtol=TRAJ_TOL, atol=TRAJ_TOL)
             err = max(err, float(np.abs(a - b).max()))
-    n = launches()["physics_step"]
-    assert n == (2 if dev.type == "cuda" else 0), n
+    n, n_rng = (launches()[k] for k in ("physics_step", "threefry_flat"))
+    assert n == n_rng == (2 if dev.type == "cuda" else 0), (n, n_rng)
     print(f"phase 12b: entry() 2 frames on {dev} == cpu (bookkeeping and "
           f"alive exact, fields within {TRAJ_TOL}: max abs err {err:.3e}), "
-          f"alive {int(alive[0].sum())}, physics launches {n}")
+          f"alive {int(alive[0].sum())}, physics launches {n}, threefry "
+          f"launches {n_rng}")
     t0 = time.perf_counter()
     stats = dryrun_multichip(8, device=dev)
     print(f"phase 12b: dryrun_multichip(8) on {dev} over gloo "
@@ -2169,6 +2266,156 @@ def phase_tools(dev, ckpt_args=(), batched_args=()):
     return ck, br
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the threefry kernel
+# ---------------------------------------------------------------------------
+
+#: tags at the edges of the uint32 values they hold
+EDGE_TAGS = (0, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF)
+#: slots of the 10M n-body stage (10,485,760 particles, twice the slots)
+NBODY_10M_SLOTS = 20 * 2 ** 20
+#: integer instructions of one threefry2x32 hash: an IADD, a SHF and a
+#: LOP3 a round (60), the key injections and the key schedule's parity
+INT_OPS_PER_HASH = 72
+#: instructions the card dispatches a second, one for every lane: four
+#: schedulers an SM dispatch one warp instruction a clock each (128 lanes,
+#: as for FP32); the hash's adds go to the 64 INT32 lanes and, as IMAD, to
+#: the FMA lanes, so the INT32 lanes alone do not bound it
+DISPATCH_LANES_PER_S = FP32_LANES_PER_S
+#: hashes of one n-body tag: two fold_ins, three uvec draws, one fert draw
+HASHES_PER_TAG = 6
+
+
+def threefry_bound(hashes: int, n_bytes: int):
+    """(least milliseconds, what bounds it) of ``hashes`` hashes that read
+    and write ``n_bytes``: the instruction rate against device-memory
+    bytes."""
+    t_ops = hashes * INT_OPS_PER_HASH / DISPATCH_LANES_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def threefry_sass() -> dict:
+    """{kernel: (instructions, {opcode: count})} of the threefry kernels in
+    the built library, from ``cuobjdump -sass``."""
+    from particlesystem_tpu_torch.utils.cuda_build import sass_instructions
+    out = {}
+    for name, instructions in sass_instructions().items():
+        key = next((k for k in ("nbody_frame_fields", "flat_fields")
+                    if k in name), None)
+        if key is not None:
+            counts: dict = {}
+            for ins in instructions:
+                op = ins.split(".")[0]
+                counts[op] = counts.get(op, 0) + 1
+            out[key] = (len(instructions), counts)
+    return out
+
+
+def time_threefry(name, kern, plain, hashes, n_bytes):
+    """Kernel against plain version timed (plain, kernel, kernel, plain)
+    beside the bound; returns the row of the kernels line."""
+    p1 = cuda_ms(plain, 3)
+    k1 = cuda_ms(kern, 50)
+    k2 = cuda_ms(kern, 50)
+    p2 = cuda_ms(plain, 3)
+    dev_ms = graph_ms(kern, 50)
+    bound, by = threefry_bound(hashes, n_bytes)
+    print(f"phase 13: {name}: kernel {k1:.5f} / {k2:.5f} ms through the "
+          f"wrapper, {dev_ms:.5f} ms in a CUDA graph; plain {p1:.3f} / "
+          f"{p2:.3f} ms (plain, kernel, kernel, plain); {hashes} hashes x "
+          f"{INT_OPS_PER_HASH} integer instructions, {n_bytes} bytes: bound "
+          f"{bound:.5f} ms ({by}), {bound / min(k1, k2):.1%} of it through "
+          f"the wrapper, {bound / dev_ms:.1%} in the graph")
+    return dict(ms=min(k1, k2), graph_ms=dev_ms, plain_ms=min(p1, p2),
+                bound_ms=bound, bound_by=by)
+
+
+def phase_threefry(dev, plateau_tags):
+    """13: the threefry kernel against its plain version, bit for bit, at
+    full width: the n-body fields of ``NBodyConfig()``'s 2,097,152 tags,
+    the 10M stage's 20,971,520 and the plateau prefix of phase 4
+    (``plateau_tags``), each with the edge tags, at frames 0 and 20; the
+    emitter's spawn draws at the bench scene's ``SpawnTable.total``,
+    salts 0 and 3; ``init_fill``'s draws at 1M.  Then each timed beside
+    its bound, and the kernels' SASS read."""
+    import shutil
+
+    import torch
+    from particlesystem_tpu_torch import NBodyConfig
+    from particlesystem_tpu_torch.models import emitter as em
+    from particlesystem_tpu_torch.models import nbody
+    from particlesystem_tpu_torch.ops import rng_kernel as rk
+
+    cfg = NBodyConfig()
+    seed, lo, hi = cfg.seed, cfg.min_fertility_age, cfg.max_fertility_age
+    edge = torch.tensor(EDGE_TAGS, dtype=torch.int64, device=dev)
+    err = 0.0
+    for name, tags in (
+            (f"plateau prefix {plateau_tags.numel()}", plateau_tags),
+            (f"{cfg.slots} slots", torch.arange(cfg.slots, device=dev)),
+            (f"{NBODY_10M_SLOTS} slots",
+             torch.arange(NBODY_10M_SLOTS, device=dev))):
+        tags = torch.cat([tags, edge])
+        for frame in (0, 20):
+            err = max(err, same_bits(
+                rk.nbody_fields_cuda(seed, frame, tags, lo, hi),
+                rk.nbody_fields_plain(seed, frame, tags, lo, hi),
+                f"n-body fields, {name}, frame {frame}"))
+        print(f"phase 13: n-body fields, {name} + {len(EDGE_TAGS)} edge "
+              f"tags, frames 0 and 20: uvec and fert kernel == plain bit "
+              f"for bit")
+        del tags
+    scene = bench_scene(EMIT_SLOTS)
+    total = em.SpawnTable(scene, dev).total
+    for salt in (0, 3):
+        for frame in (0, 20):
+            draws = em.spawn_draws(scene, frame, salt, total)
+            err = max(err, same_bits(
+                rk.flat_fields_cuda(draws, dev),
+                rk.flat_fields_plain(draws, dev),
+                f"spawn draws, salt {salt}, frame {frame}"))
+    print(f"phase 13: spawn draws of the bench scene, {total} rows, salts 0 "
+          f"and 3, frames 0 and 20: u and dirs kernel == plain bit for bit")
+    fill = nbody.fill_draws(cfg, cfg.n_fill)
+    err = max(err, same_bits(rk.flat_fields_cuda(fill, dev),
+                             rk.flat_fields_plain(fill, dev), "init_fill"))
+    print(f"phase 13: init_fill's four draws at {cfg.n_fill} particles: "
+          f"kernel == plain bit for bit")
+
+    n = plateau_tags.numel()
+    main = time_threefry(
+        f"n-body fields, plateau prefix {n} tags",
+        lambda: rk.nbody_fields_cuda(seed, 20, plateau_tags, lo, hi),
+        lambda: rk.nbody_fields_plain(seed, 20, plateau_tags, lo, hi),
+        HASHES_PER_TAG * n, 24 * n)
+    for slots in (cfg.slots, NBODY_10M_SLOTS):
+        tags = torch.arange(slots, device=dev)
+        ms = cuda_ms(lambda: rk.nbody_fields_cuda(seed, 20, tags, lo, hi),
+                     20)
+        bound, by = threefry_bound(HASHES_PER_TAG * slots, 24 * slots)
+        print(f"phase 13: n-body fields, {slots} tags: kernel {ms:.5f} ms, "
+              f"bound {bound:.5f} ms ({by}), {bound / ms:.1%} of it")
+        del tags
+    draws = em.spawn_draws(scene, 20, 0, total)
+    time_threefry(f"spawn draws, {total} rows",
+                  lambda: rk.flat_fields_cuda(draws, dev),
+                  lambda: rk.flat_fields_plain(draws, dev),
+                  11 * total, 4 * 11 * total)
+    time_threefry(f"init_fill draws, {cfg.n_fill} particles",
+                  lambda: rk.flat_fields_cuda(fill, dev),
+                  lambda: rk.flat_fields_plain(fill, dev),
+                  8 * cfg.n_fill, 4 * 8 * cfg.n_fill)
+    if shutil.which("cuobjdump") or shutil.which("nvcc"):
+        for kernel, (count, ops) in threefry_sass().items():
+            top = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+            print(f"phase 13: sass {kernel}: {count} instructions; "
+                  + " ".join(f"{op}:{c}" for op, c in top))
+    else:
+        print("phase 13: sass not read: no cuobjdump on this machine")
+    return dict(err=err, **main)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2205,6 +2452,7 @@ def main() -> int:
     phase_entry(dev)
     phase_cli_launcher(("cuda:0", "cpu"))
     phase_tools(dev)
+    rng = phase_threefry(dev, main_path.pop("plateau_tags"))
 
     kernels = [{
         "name": "cluster_pair",
@@ -2255,6 +2503,19 @@ def main() -> int:
         "bound_ms": affine["bound_ms"],
         "bound_by": affine["bound_by"],
         "library_ms": affine["library_ms"],
+    }, {
+        "name": "threefry_fields",
+        "route": "cuda",
+        "source": "particlesystem_tpu_torch/csrc/threefry.cu",
+        # XLA's fused draw: the JAX package has no Pallas kernel here
+        "replaces": "particlesystem_tpu/core/rng.py:53",
+        "launches": main_path["rng_launches"] + emitter["rng_launches"],
+        "max_abs_err": rng["err"],
+        "ms": rng["ms"],
+        "plain_ms": rng["plain_ms"],
+        "bound_ms": rng["bound_ms"],
+        "bound_by": rng["bound_by"],
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -21,6 +21,7 @@ tensors (per-tag keys, computed on the device).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -71,8 +72,16 @@ def split(k, num: int):
     return [threefry2x32(k[0], k[1], 0, i) for i in range(num)]
 
 
+@functools.lru_cache(maxsize=256)
+def _purpose_key(seed: int, purpose: int):
+    return fold_in(key(seed), purpose)
+
+
 def frame_key(seed: int, frame: int, purpose: int):
-    return fold_in(fold_in(key(seed), purpose), frame)
+    """``fold_in(fold_in(key(seed), purpose), frame)``; the first hash,
+    the same every frame, is computed once (a hash of host ints takes
+    some 16 microseconds of Python)."""
+    return fold_in(_purpose_key(seed, purpose), frame)
 
 
 def random_bits(k, shape, device) -> torch.Tensor:

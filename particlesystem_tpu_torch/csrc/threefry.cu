@@ -1,0 +1,238 @@
+// Threefry-2x32 random fields for Hopper (sm_90a).
+//
+// Replaces XLA's fused draw of the JAX package's per-frame random fields:
+// particlesystem_tpu/core/rng.py:53 _per_tag_u01 (a vmap of fold_in and
+// uniform, one fused elementwise computation under jit; there is no Pallas
+// kernel), reached by models/nbody.py:334 frame_fields, and the flat
+// jax.random.uniform draws of models/emitter.py:68 spawn_fields and of
+// models/nbody.py init_fill.  Computes what
+// particlesystem_tpu_torch/core/rng.py computes as int64 tensor ops (its
+// plain version, through ops/rng_kernel.py), bit for bit:
+//
+//   threefry2x32(k, (x1, x2))  20 rounds; ks = (k1, k2, k1^k2^0x1BD11BDA);
+//                              rotations (13,15,26,6) then (17,29,16,24);
+//                              after group i, x1 += ks[(i+1)%3] and
+//                              x2 += ks[(i+2)%3] + i + 1
+//   fold_in(k, d)              threefry2x32(k, (0, d))
+//   element i of a draw        b1 ^ b2 of threefry2x32(k, (i >> 32, i))
+//   uniform                    bitcast_f32((bits >> 9) | 0x3F800000) - 1
+//   lattice unit vector        three ints floor(u*100) - 50, divided by
+//                              their norm; the all-zero draw gives +x
+//
+// Two entry points:
+//
+//   ps_nbody_frame_fields  one thread a tag (int64 tags, masked to 32 bits):
+//                          uvec (T, 3) the lattice vector of 3 uniforms
+//                          under fold_in(kU, tag); fert (T,) lo + u*span,
+//                          u under fold_in(kF, tag)
+//   ps_flat_fields         up to 4 flat draws into one float32 buffer, one
+//                          after the other: uniforms, lo + u*span, or
+//                          lattice unit vectors (3 counters a row)
+//
+// The frame-level keys are host values: they travel in the kernel's
+// parameter block, never through device memory.
+//
+// What bounds it on the card: the instruction rate.  A hash is about 72
+// integer instructions (per round one add, one SHF, one LOP3; then the key
+// injections; ptxas spreads the adds over IADD3 and IMAD, so they go to
+// the INT32 and the FMA lanes alike), an n-body tag costs 6 hashes (two
+// fold_ins, four draws) against 24 bytes (8 in, 16 out): at the 1M
+// plateau prefix of 786,432 tags some 3.4e8 instructions at 128 lanes an
+// SM a clock, against 18.9 MB at 3.35 TB/s, so the instructions take
+// about twice as long as the bytes.
+//
+// What the design does about it: each hash lives in registers, its rounds
+// unrolled, each rotation one funnel shift; a tag's six hashes run in one
+// thread and nothing intermediate touches device memory (the plain version
+// writes some 170 int64 tensors a hash).  One thread an item over a
+// grid-stride loop.
+//
+// Exactness: every float operation is an explicitly rounded intrinsic
+// (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn, __fsqrt_rn), so no FMA
+// contraction fuses lo + u*span or the lattice's u*100; the square root is
+// the correctly rounded float32 root, which is what the plain version's
+// float64 root rounded once gives.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_BLOCKS = 132 * 16;
+constexpr int MAX_DRAWS = 4;
+constexpr uint32_t PARITY = 0x1BD11BDAu;
+
+enum Kind : int { UNIT = 0, AFFINE = 1, LATTICE = 2 };
+
+struct Key {
+    uint32_t k1, k2;
+};
+
+struct Draw {
+    uint32_t k1, k2;
+    long long start;   // first item of the draw, over all draws' items
+    long long offset;  // first float of its output in the buffer
+    int kind;
+    float lo, span;
+};
+
+struct Draws {
+    Draw d[MAX_DRAWS];
+    int n;
+    long long items;
+};
+
+__device__ __forceinline__ int rotation(int group, int j)
+{
+    return group % 2 == 0 ? (j == 0 ? 13 : j == 1 ? 15 : j == 2 ? 26 : 6)
+                          : (j == 0 ? 17 : j == 1 ? 29 : j == 2 ? 16 : 24);
+}
+
+__device__ __forceinline__ uint2 threefry(uint32_t k1, uint32_t k2,
+                                          uint32_t x1, uint32_t x2)
+{
+    const uint32_t ks[3] = {k1, k2, k1 ^ k2 ^ PARITY};
+    x1 += ks[0];
+    x2 += ks[1];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            x1 += x2;
+            x2 = __funnelshift_l(x2, x2, rotation(i, j)) ^ x1;
+        }
+        x1 += ks[(i + 1) % 3];
+        x2 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+    }
+    return make_uint2(x1, x2);
+}
+
+// element i of a draw under key (k1, k2): the counter's high word too
+__device__ __forceinline__ float uniform(uint32_t k1, uint32_t k2,
+                                         unsigned long long i)
+{
+    const uint2 h = threefry(k1, k2, static_cast<uint32_t>(i >> 32),
+                             static_cast<uint32_t>(i));
+    const uint32_t bits = h.x ^ h.y;
+    return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
+}
+
+__device__ __forceinline__ float lattice_int(float u)
+{
+    return static_cast<float>(
+        static_cast<int>(floorf(__fmul_rn(u, 100.0f))) - 50);
+}
+
+// the unit vector of three uniforms, written to out[0..2]
+__device__ __forceinline__ void lattice(float u0, float u1, float u2,
+                                        float* out)
+{
+    const float v0 = lattice_int(u0);
+    const float v1 = lattice_int(u1);
+    const float v2 = lattice_int(u2);
+    const float sq = __fadd_rn(__fadd_rn(__fmul_rn(v0, v0), __fmul_rn(v1, v1)),
+                               __fmul_rn(v2, v2));
+    const float mag = __fsqrt_rn(sq);
+    if (mag > 0.0f) {
+        out[0] = __fdiv_rn(v0, mag);
+        out[1] = __fdiv_rn(v1, mag);
+        out[2] = __fdiv_rn(v2, mag);
+    } else {
+        out[0] = 1.0f;
+        out[1] = 0.0f;
+        out[2] = 0.0f;
+    }
+}
+
+__global__ void __launch_bounds__(THREADS) nbody_frame_fields(
+    const long long* __restrict__ tags, long long n, float* __restrict__ uvec,
+    float* __restrict__ fert, Key ku, Key kf, float lo, float span)
+{
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+    for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x
+                       + threadIdx.x;
+         t < n; t += stride) {
+        const uint32_t tag = static_cast<uint32_t>(tags[t]);
+        const uint2 k = threefry(ku.k1, ku.k2, 0u, tag);
+        lattice(uniform(k.x, k.y, 0), uniform(k.x, k.y, 1),
+                uniform(k.x, k.y, 2), uvec + 3 * t);
+        const uint2 f = threefry(kf.k1, kf.k2, 0u, tag);
+        fert[t] = __fadd_rn(lo, __fmul_rn(uniform(f.x, f.y, 0), span));
+    }
+}
+
+__global__ void __launch_bounds__(THREADS) flat_fields(
+    float* __restrict__ out, Draws draws)
+{
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+    for (long long w = static_cast<long long>(blockIdx.x) * blockDim.x
+                       + threadIdx.x;
+         w < draws.items; w += stride) {
+        Draw d = draws.d[0];
+#pragma unroll
+        for (int g = 1; g < MAX_DRAWS; ++g)
+            if (g < draws.n && w >= draws.d[g].start) d = draws.d[g];
+        const unsigned long long i = w - d.start;
+        if (d.kind == LATTICE) {
+            lattice(uniform(d.k1, d.k2, 3 * i), uniform(d.k1, d.k2, 3 * i + 1),
+                    uniform(d.k1, d.k2, 3 * i + 2), out + d.offset + 3 * i);
+        } else {
+            const float u = uniform(d.k1, d.k2, i);
+            out[d.offset + i] =
+                d.kind == AFFINE ? __fadd_rn(d.lo, __fmul_rn(u, d.span)) : u;
+        }
+    }
+}
+
+int blocks_for(long long items)
+{
+    const long long b = (items + THREADS - 1) / THREADS;
+    return static_cast<int>(b < MAX_BLOCKS ? b : MAX_BLOCKS);
+}
+
+}  // namespace
+
+// uvec (n, 3) and fert (n,) float32 of the n int64 tags; (ku1, ku2) and
+// (kf1, kf2) are the frame's UVEC and FERT keys, lo and span float32.
+extern "C" int ps_nbody_frame_fields(
+    const long long* tags, long long n, float* uvec, float* fert,
+    unsigned int ku1, unsigned int ku2, unsigned int kf1, unsigned int kf2,
+    float lo, float span, void* stream)
+{
+    if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (n == 0) return 0;
+    nbody_frame_fields<<<blocks_for(n), THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        tags, n, uvec, fert, Key{ku1, ku2}, Key{kf1, kf2}, lo, span);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// n_draws draws into out, one after the other: draw g has key
+// (keys[2g], keys[2g+1]), items[g] items of kind kinds[g] (UNIT and AFFINE:
+// one float an item; LATTICE: a row of 3 floats) and, for AFFINE,
+// lo = affine[2g], span = affine[2g+1].  keys, items, kinds and affine are
+// host arrays.
+extern "C" int ps_flat_fields(
+    float* out, int n_draws, const unsigned int* keys, const long long* items,
+    const int* kinds, const float* affine, void* stream)
+{
+    if (n_draws < 1 || n_draws > MAX_DRAWS)
+        return static_cast<int>(cudaErrorInvalidValue);
+    Draws draws = {};
+    long long start = 0, offset = 0;
+    for (int g = 0; g < n_draws; ++g) {
+        if (items[g] < 0 || kinds[g] < UNIT || kinds[g] > LATTICE)
+            return static_cast<int>(cudaErrorInvalidValue);
+        draws.d[g] = Draw{keys[2 * g], keys[2 * g + 1], start, offset,
+                          kinds[g], affine[2 * g], affine[2 * g + 1]};
+        start += items[g];
+        offset += kinds[g] == LATTICE ? 3 * items[g] : items[g];
+    }
+    draws.n = n_draws;
+    draws.items = start;
+    if (start == 0) return 0;
+    flat_fields<<<blocks_for(start), THREADS, 0,
+                  static_cast<cudaStream_t>(stream)>>>(out, draws);
+    return static_cast<int>(cudaGetLastError());
+}

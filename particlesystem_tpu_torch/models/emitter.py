@@ -25,7 +25,7 @@ import torch
 from ..core import rng
 from ..core.config import Emitter, EmitterSceneConfig
 from ..core.state import ParticleState
-from ..ops import compact
+from ..ops import compact, rng_kernel
 from ..ops.forces import accel, collide, sqrt_f32
 from ..ops.neighbor import as_f32
 
@@ -103,14 +103,25 @@ class SpawnTable:
         self.weight = per_row(lambda e: e.weight)
 
 
+def spawn_draws(cfg: EmitterSceneConfig, frame: int, salt: int,
+                total: int) -> list:
+    """A frame's two spawn draws over ``total`` rows: a ``(total, 8)``
+    uniform draw under ``base = fold_in(frame_key(seed, frame, EMIT),
+    salt)`` and ``total`` unit vectors under ``fold_in(base, 1)``, drawn in
+    one threefry kernel launch on a card (``ops/rng_kernel.py``)."""
+    base = rng.fold_in(rng.frame_key(cfg.seed, frame, rng.EMIT), salt)
+    return [rng_kernel.u01(base, (total, 8)),
+            rng_kernel.unit_vectors(rng.fold_in(base, 1), total)]
+
+
 def spawn_fields(cfg: EmitterSceneConfig, frame: int, accum: torch.Tensor,
                  salt: int = 0, table: Optional[SpawnTable] = None
                  ) -> Tuple[SpawnRows, torch.Tensor]:
     """This frame's spawn rows and the updated fractional-rate accumulators
     (one float per emitter), on ``accum``'s device.  ``salt`` decorrelates
     parallel streams.  One ``(total, 8)`` uniform draw and one unit-vector
-    draw cover every emitter's rows.  ``table`` is the scene's
-    :class:`SpawnTable` (built here when not given)."""
+    draw cover every emitter's rows (:func:`spawn_draws`).  ``table`` is
+    the scene's :class:`SpawnTable` (built here when not given)."""
     dev = accum.device
     if not cfg.emitters:
         z3 = torch.zeros((1, 3), device=dev)
@@ -120,9 +131,8 @@ def spawn_fields(cfg: EmitterSceneConfig, frame: int, accum: torch.Tensor,
                 accum)
     t = SpawnTable(cfg, dev) if table is None else table
 
-    base = rng.fold_in(rng.frame_key(cfg.seed, frame, rng.EMIT), salt)
-    u = rng.uniform01(base, (t.total, 8), dev)
-    dirs = rng.random_unit_vectors(rng.fold_in(base, 1), t.total, dev)
+    u, dirs = rng_kernel.flat_fields(spawn_draws(cfg, frame, salt, t.total),
+                                     dev)
 
     # fractional-rate accumulators over the (E,) row, then a gather maps the
     # per-emitter counts onto rows

@@ -27,6 +27,7 @@ import torch
 from ..core import rng
 from ..core.config import NBodyConfig
 from ..core.state import FIELDS, ParticleState, zero_state
+from ..ops import rng_kernel
 from ..ops.compact import rank_table, write_rows
 from ..ops.grid import (build_bins, chunk_occupancy, coords_to_cell,
                         wrap_positions)
@@ -55,6 +56,18 @@ class NBodyStats:
     n_tail_alive: torch.Tensor
 
 
+def fill_draws(cfg: NBodyConfig, n: int) -> list:
+    """:func:`init_fill`'s four draws of ``n`` particles (positions,
+    signs, ages, fertility ages), drawn in one threefry kernel launch on a
+    card (``ops/rng_kernel.py``)."""
+    kr, ks, ka, kf = rng.split(rng.frame_key(cfg.seed, 0, rng.FILL), 4)
+    return [rng_kernel.u01(kr, (n, 3)), rng_kernel.u01(ks, (n, 3)),
+            rng_kernel.uniform(ka, (n,), cfg.min_adult_age,
+                               cfg.max_adult_age),
+            rng_kernel.uniform(kf, (n,), cfg.min_fertility_age,
+                               cfg.max_fertility_age)]
+
+
 def init_fill(cfg: NBodyConfig, device, n: int | None = None
               ) -> ParticleState:
     """Uniform initial fill — FILL_PARTICLES
@@ -65,15 +78,12 @@ def init_fill(cfg: NBodyConfig, device, n: int | None = None
     n = cfg.n_fill if n is None else n
     if n > cfg.slots:
         raise ValueError(f"n_fill={n} exceeds capacity {cfg.slots}")
-    kr, ks, ka, kf = rng.split(rng.frame_key(cfg.seed, 0, rng.FILL), 4)
-    r = rng.uniform01(kr, (n, 3), device)
-    sign = torch.where(rng.uniform01(ks, (n, 3), device) >= 0.5, 1.0, -1.0)
+    r, u_sign, age, life = rng_kernel.flat_fields(fill_draws(cfg, n), device)
+    sign = torch.where(u_sign >= 0.5, 1.0, -1.0)
     s = zero_state(cfg.slots, device)
     s.pos[:n] = sign * r * cfg.grid.half_extent
-    s.age[:n] = rng.uniform(ka, (n,), cfg.min_adult_age, cfg.max_adult_age,
-                            device)
-    s.life[:n] = rng.uniform(kf, (n,), cfg.min_fertility_age,
-                             cfg.max_fertility_age, device)
+    s.age[:n] = age
+    s.life[:n] = life
     s.w[:n] = cfg.weight
     s.alive[:n] = True
     s.tag = torch.arange(cfg.slots, dtype=torch.int64, device=device)
@@ -82,13 +92,11 @@ def init_fill(cfg: NBodyConfig, device, n: int | None = None
 
 def frame_fields(cfg: NBodyConfig, frame: int, tags: torch.Tensor):
     """Per-slot random fields keyed by each slot's particle tag: explosion
-    unit velocity (N, 3) and child fertility age (N,)."""
-    uvec = rng.per_tag_unit_vectors(
-        rng.frame_key(cfg.seed, frame, rng.UVEC), tags)
-    fert = rng.per_tag_uniform(rng.frame_key(cfg.seed, frame, rng.FERT),
-                               tags, cfg.min_fertility_age,
-                               cfg.max_fertility_age)
-    return uvec, fert
+    unit velocity (N, 3) and child fertility age (N,); one threefry kernel
+    launch for CUDA tags (``ops/rng_kernel.py``)."""
+    return rng_kernel.nbody_fields(cfg.seed, frame, tags,
+                                   cfg.min_fertility_age,
+                                   cfg.max_fertility_age)
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:

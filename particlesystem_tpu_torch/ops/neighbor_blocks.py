@@ -125,12 +125,9 @@ def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, tags,
     starts = torch.searchsorted(
         skey, torch.arange(num_cells + 2, dtype=torch.int64, device=dev))
     counts = starts[1:] - starts[:-1]                # (num_cells + 1,)
-    # in-cell rank: distance to the start of the current equal-key run
-    # (runs ascend, so a running max of boundary positions is the start)
-    first = torch.ones(n, dtype=torch.bool, device=dev)
-    first[1:] = skey[1:] != skey[:-1]
-    run_start = torch.cummax(torch.where(first, iot, 0), dim=0).values
-    rank = iot - run_start
+    # in-cell rank: distance to the first sorted row of the row's key
+    # (``starts`` holds it for every key, and no key exceeds num_cells)
+    rank = iot - starts[skey]
 
     in_grid = skey < num_cells
     valid_s = in_grid & (rank < cfg.cell_capacity)

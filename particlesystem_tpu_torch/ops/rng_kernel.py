@@ -1,0 +1,220 @@
+"""Each frame's random fields in one kernel launch: wrapper of
+``csrc/threefry.cu``.
+
+Counterpart of XLA's fused draw of the JAX package's random fields
+(``particlesystem_tpu/core/rng.py:53``, ``_per_tag_u01`` under ``jit``;
+there is no Pallas kernel): the threefry of ``core/rng.py``, bit for bit,
+with every hash of a field in one launch instead of some 170 int64 tensor
+operations a hash.
+
+Two functions, each a dispatcher: CUDA tensors (or a CUDA ``device``)
+launch the kernel, CPU ones take the plain version, built on
+``core/rng.py``; any other device raises.
+
+* :func:`nbody_fields` — the n-body frame's per-tag fields (what
+  ``models/nbody.frame_fields`` returns): the explosion unit vector under
+  ``fold_in(frame_key(seed, frame, UVEC), tag)`` and the child fertility
+  age ``lo + u*(hi - lo)`` under ``fold_in(frame_key(seed, frame, FERT),
+  tag)``, one thread a tag.
+* :func:`flat_fields` — up to four flat draws in one launch, each a
+  :class:`Draw`: uniforms (:func:`u01`), ``lo + u*(hi - lo)``
+  (:func:`uniform`) or lattice unit vectors (:func:`unit_vectors`); the
+  emitter's spawn rows and ``init_fill`` take theirs here.
+
+The frame-level keys are host ints (``core/rng.frame_key``) and travel to
+the kernel as launch arguments.  ``lo`` and ``hi - lo`` are rounded to
+float32 on the host, as torch rounds a Python scalar before a float32
+tensor operation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..core import rng
+from ..utils.cuda_build import launch
+
+UNIT, AFFINE, LATTICE = 0, 1, 2
+MAX_DRAWS = 4
+#: counters of one draw must fit the low word of the 64-bit counter
+MAX_COUNTERS = 1 << 32
+
+
+@dataclasses.dataclass(frozen=True)
+class Draw:
+    """One flat draw under a host key: ``shape`` floats (``UNIT``,
+    ``AFFINE``) or ``shape[0]`` lattice unit vectors of 3 floats
+    (``LATTICE``)."""
+
+    key: tuple
+    shape: tuple
+    kind: int = UNIT
+    lo: float = 0.0
+    hi: float = 1.0
+
+    @property
+    def items(self) -> int:
+        """Kernel items: one a float, or one a lattice row."""
+        return math.prod(self.shape)
+
+    @property
+    def counters(self) -> int:
+        return self.items * (3 if self.kind == LATTICE else 1)
+
+    @property
+    def out_shape(self) -> tuple:
+        return (*self.shape, 3) if self.kind == LATTICE else self.shape
+
+
+def u01(key, shape) -> Draw:
+    """``rng.uniform01(key, shape)``."""
+    return Draw(key, tuple(shape), UNIT)
+
+
+def uniform(key, shape, lo: float, hi: float) -> Draw:
+    """``rng.uniform(key, shape, lo, hi)``."""
+    return Draw(key, tuple(shape), AFFINE, lo, hi)
+
+
+def unit_vectors(key, n: int) -> Draw:
+    """``rng.random_unit_vectors(key, n)``, (n, 3)."""
+    return Draw(key, (n,), LATTICE)
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _check_tags(tags: torch.Tensor):
+    if tags.dtype != torch.int64 or tags.dim() != 1:
+        raise ValueError(f"tags must be an int64 (T,) tensor, got "
+                         f"{tags.dtype} {tuple(tags.shape)}")
+
+
+def _check_draws(draws):
+    if not 1 <= len(draws) <= MAX_DRAWS:
+        raise ValueError(f"one launch takes 1 to {MAX_DRAWS} draws, got "
+                         f"{len(draws)}")
+    for d in draws:
+        if d.kind not in (UNIT, AFFINE, LATTICE):
+            raise ValueError(f"unknown draw kind {d.kind}")
+        if d.kind == LATTICE and len(d.shape) != 1:
+            raise ValueError("a lattice draw takes a shape (n,)")
+        if d.counters >= MAX_COUNTERS:
+            raise ValueError(f"a draw of {d.counters} elements reaches "
+                             f"2^32; the kernel takes fewer")
+
+
+# --- the n-body frame's per-tag fields ----------------------------------------
+
+def nbody_fields_plain(seed: int, frame: int, tags: torch.Tensor, lo: float,
+                       hi: float):
+    """Plain PyTorch version of the kernel: (uvec (T, 3), fert (T,))."""
+    _check_tags(tags)
+    uvec = rng.per_tag_unit_vectors(rng.frame_key(seed, frame, rng.UVEC),
+                                    tags)
+    fert = rng.per_tag_uniform(rng.frame_key(seed, frame, rng.FERT), tags,
+                               lo, hi)
+    return uvec, fert
+
+
+def nbody_fields_cuda(seed: int, frame: int, tags: torch.Tensor, lo: float,
+                      hi: float):
+    """Launch ``ps_nbody_frame_fields`` on the current stream; counts its
+    launches in ``nbody_fields_cuda.launches``."""
+    _check_tags(tags)
+    dev = tags.device
+    if dev.type != "cuda":
+        raise ValueError(f"nbody_fields_cuda needs a CUDA tensor, got {dev}")
+    tags = tags.contiguous()
+    n = tags.shape[0]
+    uvec = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    fert = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return uvec, fert
+    ku = rng.frame_key(seed, frame, rng.UVEC)
+    kf = rng.frame_key(seed, frame, rng.FERT)
+    err = launch("ps_nbody_frame_fields", dev, tags.data_ptr(), n,
+                 uvec.data_ptr(), fert.data_ptr(), *ku, *kf,
+                 float(np.float32(lo)), float(np.float32(hi - lo)))
+    if err:
+        raise RuntimeError(f"threefry kernel launch failed: CUDA error {err}")
+    nbody_fields_cuda.launches += 1
+    return uvec, fert
+
+
+nbody_fields_cuda.launches = 0
+
+
+def nbody_fields(seed: int, frame: int, tags: torch.Tensor, lo: float,
+                 hi: float):
+    """The n-body frame's random fields of ``tags``: the kernel for a CUDA
+    tensor, the plain version for a CPU one."""
+    if tags.device.type == "cuda":
+        return nbody_fields_cuda(seed, frame, tags, lo, hi)
+    if tags.device.type == "cpu":
+        return nbody_fields_plain(seed, frame, tags, lo, hi)
+    raise ValueError(f"no threefry kernel for device {tags.device}")
+
+
+# --- flat draws -----------------------------------------------------------------
+
+def flat_fields_plain(draws, device) -> list:
+    """Plain PyTorch version of the kernel: one tensor a draw."""
+    _check_draws(draws)
+    out = []
+    for d in draws:
+        if d.kind == LATTICE:
+            out.append(rng.random_unit_vectors(d.key, d.shape[0], device))
+        elif d.kind == AFFINE:
+            out.append(rng.uniform(d.key, d.shape, d.lo, d.hi, device))
+        else:
+            out.append(rng.uniform01(d.key, d.shape, device))
+    return out
+
+
+def flat_fields_cuda(draws, device) -> list:
+    """Launch ``ps_flat_fields`` on the current stream for every draw at
+    once; returns one view a draw of one float32 buffer.  Counts its
+    launches in ``flat_fields_cuda.launches``."""
+    _check_draws(draws)
+    dev = _device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"flat_fields_cuda needs a CUDA device, got {dev}")
+    sizes = [math.prod(d.out_shape) for d in draws]
+    buf = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    if sum(sizes):
+        keys = np.asarray([d.key for d in draws], np.uint32)
+        items = np.asarray([d.items for d in draws], np.int64)
+        kinds = np.asarray([d.kind for d in draws], np.int32)
+        affine = np.asarray([(d.lo, d.hi - d.lo) for d in draws], np.float32)
+        err = launch("ps_flat_fields", dev, buf.data_ptr(), len(draws),
+                     keys.ctypes.data, items.ctypes.data, kinds.ctypes.data,
+                     affine.ctypes.data)
+        if err:
+            raise RuntimeError(f"threefry kernel launch failed: CUDA error "
+                               f"{err}")
+        flat_fields_cuda.launches += 1
+    return [part.view(d.out_shape)
+            for part, d in zip(torch.split(buf, sizes), draws)]
+
+
+flat_fields_cuda.launches = 0
+
+
+def flat_fields(draws, device) -> list:
+    """The draws on ``device``, one tensor a draw: the kernel for a CUDA
+    device, the plain version for the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return flat_fields_cuda(draws, dev)
+    if dev.type == "cpu":
+        return flat_fields_plain(draws, dev)
+    raise ValueError(f"no threefry kernel for device {dev}")

@@ -39,10 +39,7 @@ Usage: python -m particlesystem_tpu_torch.tools.probe_alu_ops
 from __future__ import annotations
 
 import re
-import shutil
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -193,22 +190,15 @@ def sass_counts() -> dict:
     kernels, from ``cuobjdump -sass``: which opcodes survived, for
     reading beside the timings (the k loop is unrolled by 4, with a
     remainder loop of single layers)."""
-    from ..utils.cuda_build import _nvcc, build
+    from ..utils.cuda_build import sass_instructions
 
-    tool = shutil.which("cuobjdump") or str(
-        Path(_nvcc()).with_name("cuobjdump"))
-    text = subprocess.run([tool, "-sass", str(build()[0])],
-                          capture_output=True, text=True, check=True).stdout
     out = {}
-    for part in text.split("Function : ")[1:]:
-        name = part.split("\n", 1)[0].strip()
+    for name, instructions in sass_instructions().items():
         m = re.search(r"probe_alu_kernelILi(\d+)E", name)
         if not m:
             continue
         counts: dict = {}
-        for ins in re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d+\s+)?"
-                              r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)",
-                              part, flags=re.M):
+        for ins in instructions:
             op = ".".join(ins.split(".")[:2]) if ins.startswith(
                 ("MUFU", "FSET", "FSETP")) else ins.split(".")[0]
             counts[op] = counts.get(op, 0) + 1

@@ -20,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -114,7 +115,31 @@ def load_library() -> ctypes.CDLL:
     fn = lib.ps_probe_affine
     fn.argtypes = [_P, _P, ctypes.c_longlong, _P]
     fn.restype = ctypes.c_int
+    fn = lib.ps_nbody_frame_fields
+    fn.argtypes = [_P, ctypes.c_longlong, _P, _P] + [ctypes.c_uint32] * 4 + [
+        ctypes.c_float, ctypes.c_float, _P]
+    fn.restype = ctypes.c_int
+    fn = lib.ps_flat_fields
+    fn.argtypes = [_P, ctypes.c_int, _P, _P, _P, _P, _P]
+    fn.restype = ctypes.c_int
     return lib
+
+
+def sass_instructions() -> dict:
+    """{kernel's mangled name: [SASS mnemonic with its suffixes, ...]} of
+    the built library, from ``cuobjdump -sass`` (found beside ``nvcc``
+    when it is not on the PATH)."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(_nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([tool, "-sass", str(build()[0])],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        out[name] = re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d+\s+)?"
+                               r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)",
+                               part, flags=re.M)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
