@@ -131,13 +131,32 @@ Phases (any failure raises and exits non-zero):
     and phase 4's plateau prefix, each with the edge tags 0, 0x7FFFFFFF,
     0x80000000 and 0xFFFFFFFF, at frames 0 and 20; the emitter's spawn
     draws at the bench scene's ``SpawnTable.total``, salts 0 and 3;
-    ``init_fill``'s four draws at 1M; then each timed beside its bound
-    (the instruction rate: 72 instructions a hash), and its SASS counted.
+    ``init_fill``'s four draws at 1M, the frame read from device memory;
+    then each timed beside its bound (the instruction rate: 72
+    instructions a hash, and the keys each block derives), and its SASS
+    counted;
+14. the frame loops as CUDA graphs against the eager frames: the n-body
+    at ``NBodyConfig()`` full width, ``run`` in batches of 10, 2 and 8
+    frames (the full-width key, then the prefix's) against 20 frames of
+    ``models/nbody.step`` on the same prefixes, and ``PackedEngine``
+    select/packed8 at 10,485,760 slots, ``step_many(64)`` and ``(56)``
+    against 120 frames of its eager ``_frame``: every field, mask and
+    stat bit-identical; the dense pass's loop (its keys changing with the
+    list width) against the same loop on the CPU at phase 3's config;
+    eager frames + replays = frames, each kernel
+    recorded once a graph; ms a frame of both loops, the host's
+    microseconds a replay, the graph's nodes, kernels a frame and the
+    device's busy share from a trace of replays.
 
-Every path that draws random fields on the card goes through the threefry
-kernel: its launches are read beside the other kernels' in phases 4, 6,
-7, 9, 10, 11 and 12 (once a frame, once an ``init_fill``), and phase 6
-also holds the spawn draws on the card against those on the CPU.
+The single-device frame loops (``NBodySimulation.run``,
+``PackedEngine.step``/``step_many``, and ``ParticleSystem``, ``bench`` and
+``entry()`` through them) replay one CUDA graph a frame after a key's
+eager first frame.  Every path that draws random fields on the card goes
+through the threefry kernel: its launches are read beside the other
+kernels' in phases 4, 6, 7, 9, 10, 11, 12 and 14 (once a frame, once an
+``init_fill``; a replay counts the launches its graph recorded), and
+phase 6 also holds the spawn draws on the card against those on the
+CPU.
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -543,14 +562,15 @@ def phase_main_path(dev):
     assert (st.pos[alive].abs() <= bound).all(), "alive particle out of box"
     print(f"phase 4: frames 1-{MAIN_ITERS} {first_s:.3f} s (first call, "
           f"full width, includes warm-up); frames {MAIN_ITERS + 1}-"
-          f"{2 * MAIN_ITERS} {ms_frame:.3f} ms/frame on active prefix "
+          f"{2 * MAIN_ITERS} {ms_frame:.3f} ms/frame (with the prefix "
+          f"graph's warm-up frame and capture) on active prefix "
           f"{active_second or cfg.slots} of {cfg.slots} slots; alive "
           f"{n_alive}; kernel launches {n_launch} (pair), "
           f"{counts['threefry_nbody']} + {counts['threefry_flat']} "
           f"(threefry: frames, init_fill); peak memory "
           f"{peak} bytes ({peak / 2**30:.3f} GiB)")
 
-    profile_nbody_frame(sim)
+    eager_kernels = profile_nbody_frame(sim)
 
     # the plateau state: this frame, on the active prefix
     rows = sim._active or cfg.slots
@@ -565,6 +585,7 @@ def phase_main_path(dev):
     adult = time_pair_state("adult-heavy (frame 0)", cfg, snap, chunks,
                             int(fresh.alive.sum()), dev)
     return sim, dict(launches=n_launch, plateau=plateau, adult=adult,
+                     eager_kernels=eager_kernels,
                      err=max(plateau["err"], adult["err"]),
                      rng_launches=counts["threefry_nbody"]
                      + counts["threefry_flat"],
@@ -616,6 +637,7 @@ def profile_nbody_frame(sim, top: int = 4):
           f"ms; no cummax")
     print(f"phase 4: the cluster-pair kernel in that trace: "
           f"{sum(pair) / 1e3:.4f} ms")
+    return sum(n for n, _ in by_name.values())
 
 
 def time_pair_state(name, cfg, snap, chunks, n_alive, dev):
@@ -854,6 +876,7 @@ def engine_alive(eng, fields, frame):
 
 def phase_engine_card_vs_cpu(dev):
     import numpy as np
+    import torch
     from particlesystem_tpu_torch.models import emitter as em
     from particlesystem_tpu_torch.models.emitter import SpawnTable
     from particlesystem_tpu_torch.ops import rng_kernel as rk
@@ -896,9 +919,11 @@ def phase_engine_card_vs_cpu(dev):
     # the spawn rows' random draws: the kernel on the card, the plain
     # version on the CPU
     total = SpawnTable(cfg, "cpu").total
+    draws = em.spawn_draws(cfg, 0, total)
     for frame in range(25):
-        draws = em.spawn_draws(cfg, frame, 0, total)
-        same_bits(rk.flat_fields(draws, dev), rk.flat_fields(draws, "cpu"),
+        frame_t = torch.tensor(frame, dtype=torch.int64, device=dev)
+        same_bits(rk.flat_fields(draws, frame_t, dev),
+                  rk.flat_fields(draws, frame, "cpu"),
                   f"spawn draws of frame {frame}")
     print(f"phase 6: spawn draws u ({total}, 8) and dirs ({total}, 3) of "
           f"frames 0-24: card == cpu bit for bit")
@@ -945,10 +970,12 @@ def graph_ms(fn, reps: int, replays: int = 5) -> float:
     by CUDA events (a replay is short enough for one hiccup of the card's
     clocks to double it)."""
     import torch
+    from particlesystem_tpu_torch.utils.frame_graph import recording
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # a capture launches nothing: its launches are not counted
+    with recording(), torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -1605,11 +1632,16 @@ def listed_partners(snap, chunks, b, blocks):
 @contextlib.contextmanager
 def pair_checks(module, at, c_local=None, subset=None):
     """Hold the pair kernel against its plain version on the inputs a
-    path gives it: the ``at``-th calls (0 the first) of this process's
-    ``module.neighbor_pass_blocks`` (``models.nbody`` for the single-device
-    step; ``parallel.nbody_sharded`` for the decomposed one, which the slab,
-    the pencil and the brick all call, over a halo-extended grid with the
-    halo rows from other ranks, global ids and -1-id padding rows).  Builds
+    path gives it: the ``at``-th calls (0 the first; ``LAST`` the last) of
+    this process's ``module.neighbor_pass_blocks`` (``models.nbody`` for
+    the single-device step; ``parallel.nbody_sharded`` for the decomposed
+    one, which the slab, the pencil and the brick all call, over a
+    halo-extended grid with the halo rows from other ranks, global ids and
+    -1-id padding rows).  Only calls that run a pass count: a call made
+    while a frame graph is captured is not a pass (the graph's replays
+    are, and run no Python), so the single-device loop's passes seen here
+    are each key's first, eager frame; ``LAST`` keeps a copy of the
+    latest pass's inputs and checks it when the block ends.  Builds
     the pass's snapshot and chunk table with ``prepare``, checks the ids
     unique among the valid rows (the kernel's precondition) and runs
     :func:`compare_kernel` on the whole pass, or on ``subset`` evenly
@@ -1623,45 +1655,53 @@ def pair_checks(module, at, c_local=None, subset=None):
     import torch
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
     inner = module.neighbor_pass_blocks
-    calls, records = [0], []
+    calls, records, latest = [0], [], []
+
+    def check(call, pos0, age0, w0, cell, alive, cfg, tags, dims, ids):
+        n = pos0.shape[0]
+        if ids is not None:
+            assert torch.unique(ids[alive]).numel() == \
+                int(alive.sum()), \
+                "the pass's ids are not unique among its valid rows"
+        snap, chunks, *_ = nbk.prepare(pos0, age0, w0, cell, alive, cfg,
+                                       tags, dims=dims, ids=ids)
+        local = n if c_local is None else c_local
+        rec = dict(call=call, dims=tuple(dims or (cfg.grid.grid_dim,)
+                                             * 3), rows=n,
+                   halo=int(alive[local:].sum()),
+                   pad=0 if ids is None else int((ids == -1).sum()),
+                   in_band=int((snap.f[3] >= 0).sum()), err=None,
+                   partners=None)
+        if pos0.device.type == "cuda":
+            blocks = None
+            if subset:
+                live = max(1, -(-int(alive.sum()) // nbk.B))
+                blocks = torch.linspace(
+                    0, live - 1, subset,
+                    device=pos0.device).round().to(torch.int32)
+            count = nbk.cluster_pair_cuda.launches
+            rec["err"] = compare_kernel(cfg, snap, chunks, nbk.B, nbk.CH,
+                                        blocks)
+            nbk.cluster_pair_cuda.launches = count
+            if dims is None and blocks is not None:
+                got = listed_partners(snap, chunks, nbk.B, blocks)
+                want = pair_work(cfg, snap, chunks, nbk.B, blocks)[1]
+                assert got == want, \
+                    f"pass {call}: the chunk table lists {got} " \
+                    f"stencil pairs of {subset} blocks, the cells hold " \
+                    f"{want}"
+                rec["partners"] = got
+        records.append(rec)
 
     def checked(pos0, age0, w0, cell, alive, cfg, tags, dims=None, ids=None):
-        if calls[0] in at:
-            n = pos0.shape[0]
-            if ids is not None:
-                assert torch.unique(ids[alive]).numel() == \
-                    int(alive.sum()), \
-                    "the pass's ids are not unique among its valid rows"
-            snap, chunks, *_ = nbk.prepare(pos0, age0, w0, cell, alive, cfg,
-                                           tags, dims=dims, ids=ids)
-            local = n if c_local is None else c_local
-            rec = dict(call=calls[0], dims=tuple(dims or (cfg.grid.grid_dim,)
-                                                 * 3), rows=n,
-                       halo=int(alive[local:].sum()),
-                       pad=0 if ids is None else int((ids == -1).sum()),
-                       in_band=int((snap.f[3] >= 0).sum()), err=None,
-                       partners=None)
-            if pos0.device.type == "cuda":
-                blocks = None
-                if subset:
-                    live = max(1, -(-int(alive.sum()) // nbk.B))
-                    blocks = torch.linspace(
-                        0, live - 1, subset,
-                        device=pos0.device).round().to(torch.int32)
-                count = nbk.cluster_pair_cuda.launches
-                rec["err"] = compare_kernel(cfg, snap, chunks, nbk.B, nbk.CH,
-                                            blocks)
-                nbk.cluster_pair_cuda.launches = count
-                if dims is None and blocks is not None:
-                    got = listed_partners(snap, chunks, nbk.B, blocks)
-                    want = pair_work(cfg, snap, chunks, nbk.B, blocks)[1]
-                    assert got == want, \
-                        f"pass {calls[0]}: the chunk table lists {got} " \
-                        f"stencil pairs of {subset} blocks, the cells hold " \
-                        f"{want}"
-                    rec["partners"] = got
-            records.append(rec)
-        calls[0] += 1
+        args = (pos0, age0, w0, cell, alive, cfg, tags, dims, ids)
+        if not (pos0.is_cuda and torch.cuda.is_current_stream_capturing()):
+            if calls[0] in at:
+                check(calls[0], *args)
+            elif LAST in at:
+                latest[:] = [calls[0], *(a.clone() if torch.is_tensor(a)
+                                         else a for a in args)]
+            calls[0] += 1
         return inner(pos0, age0, w0, cell, alive, cfg, tags, dims=dims,
                      ids=ids)
 
@@ -1670,6 +1710,12 @@ def pair_checks(module, at, c_local=None, subset=None):
         yield records
     finally:
         module.neighbor_pass_blocks = inner
+    if latest:
+        check(*latest)
+
+
+#: ``pair_checks``' name for the last pass
+LAST = "last"
 
 
 def pair_check_text(records) -> str:
@@ -1784,6 +1830,7 @@ def phase_sharded_one_rank(dev, cfg=None):
     import torch
     import torch.distributed as dist
     from particlesystem_tpu_torch import NBodyConfig
+    from particlesystem_tpu_torch.api import NBodySimulation
     from particlesystem_tpu_torch.core.state import FIELDS
     from particlesystem_tpu_torch.models import nbody
     from particlesystem_tpu_torch.parallel import (DistributedNBodySimulation,
@@ -1871,11 +1918,21 @@ def phase_sharded_one_rank(dev, cfg=None):
         for f in FIELDS:
             assert torch.equal(getattr(sim.state, f), getattr(ref, f)), \
                 f"frame {2 * SHARDED_ITERS}: {f} differs"
+        # the single-device loop, from frame graphs on a card, from the
+        # same arrangement at full width
+        single = NBodySimulation(cfg, device=dev, active_bucketing=False)
+        single.state = start
+        single.run(2 * SHARDED_ITERS, batch=SHARDED_ITERS)
+        for f in FIELDS:
+            assert torch.equal(getattr(single.state, f), getattr(ref, f)), \
+                f"the single-device loop at frame {2 * SHARDED_ITERS}: {f}"
+        del single
         ms_single = sum(ms_ref[SHARDED_ITERS:]) / SHARDED_ITERS
         print(f"phase 11a: slab d=1, {cfg.n_fill} particles, {cfg.slots} "
               f"slots, impl=blocks over a one-rank {backend} group: "
               f"{2 * SHARDED_ITERS} frames bit-identical to the "
-              f"single-device full-width step (state and stats), alive "
+              f"single-device full-width step (state and stats) and to "
+              f"the single-device loop's frame graphs (state), alive "
               f"{second['n_alive']}; pair-kernel launches {n_launch}, "
               f"threefry launches {n_rng}; frames "
               f"{SHARDED_ITERS + 1}-{2 * SHARDED_ITERS} {ms_sharded:.3f} "
@@ -2081,15 +2138,19 @@ def bench_stage_fns(dev, cut=None, checks=None):
     def stage(name, kw):
         if checks is None or not name.startswith("nbody"):
             return fns[name](device=dev, **kw)
-        last = bench_passes(name, kw) - 1
         sharded = name == "nbody_sharded_d1"
         slots = NBodyConfig(n_fill=kw["n_fill"],
                             grid=GridSpec(grid_dim=kw["grid_dim"])).slots
+        # the sharded step runs every pass in Python; the single-device
+        # loop only each key's first frame, its other frames replayed
+        last = bench_passes(name, kw) - 1 if sharded else LAST
         with pair_checks(nbody_sharded if sharded else nbody, (0, last),
                          slots if sharded else None,
                          BENCH_CHECK_BLOCKS) as recs:
             out = fns[name](device=dev, **kw)
-        assert [r["call"] for r in recs] == [0, last], (name, recs)
+        calls = [r["call"] for r in recs]
+        assert len(calls) == 2 and calls[0] == 0 and (
+            calls[1] == last or last == LAST), (name, recs)
         checks[name] = recs
         return out
 
@@ -2284,6 +2345,28 @@ INT_OPS_PER_HASH = 72
 DISPATCH_LANES_PER_S = FP32_LANES_PER_S
 #: hashes of one n-body tag: two fold_ins, three uvec draws, one fert draw
 HASHES_PER_TAG = 6
+#: the kernels' threads a block and most blocks (csrc/threefry.cu)
+THREEFRY_THREADS, THREEFRY_MAX_BLOCKS = 256, 132 * 16
+
+
+def threefry_blocks(items: int) -> int:
+    return min(-(-items // THREEFRY_THREADS), THREEFRY_MAX_BLOCKS)
+
+
+def nbody_fields_work(tags: int):
+    """(hashes, bytes) of ``ps_nbody_frame_fields`` over ``tags`` tags: six
+    hashes a tag and, in each block, two for the frame's keys; 8 bytes in
+    and 16 out a tag, and the frame's 8 bytes."""
+    return (HASHES_PER_TAG * tags + 2 * threefry_blocks(tags),
+            24 * tags + 8)
+
+
+def flat_fields_work(counters: int, items: int, key_hashes: int):
+    """(hashes, bytes) of ``ps_flat_fields``: one hash a counter and, in
+    each block, ``key_hashes`` for the draws' keys; 4 bytes out a counter,
+    and the frame's 8 bytes in."""
+    return (counters + key_hashes * threefry_blocks(items),
+            4 * counters + 8)
 
 
 def threefry_bound(hashes: int, n_bytes: int):
@@ -2358,8 +2441,10 @@ def phase_threefry(dev, plateau_tags):
              torch.arange(NBODY_10M_SLOTS, device=dev))):
         tags = torch.cat([tags, edge])
         for frame in (0, 20):
+            # the frame as the kernel reads it, from device memory
+            frame_t = torch.tensor(frame, dtype=torch.int64, device=dev)
             err = max(err, same_bits(
-                rk.nbody_fields_cuda(seed, frame, tags, lo, hi),
+                rk.nbody_fields_cuda(seed, frame_t, tags, lo, hi),
                 rk.nbody_fields_plain(seed, frame, tags, lo, hi),
                 f"n-body fields, {name}, frame {frame}"))
         print(f"phase 13: n-body fields, {name} + {len(EDGE_TAGS)} edge "
@@ -2369,43 +2454,47 @@ def phase_threefry(dev, plateau_tags):
     scene = bench_scene(EMIT_SLOTS)
     total = em.SpawnTable(scene, dev).total
     for salt in (0, 3):
+        draws = em.spawn_draws(scene, salt, total)
         for frame in (0, 20):
-            draws = em.spawn_draws(scene, frame, salt, total)
+            frame_t = torch.tensor(frame, dtype=torch.int64, device=dev)
             err = max(err, same_bits(
-                rk.flat_fields_cuda(draws, dev),
-                rk.flat_fields_plain(draws, dev),
+                rk.flat_fields_cuda(draws, frame_t, dev),
+                rk.flat_fields_plain(draws, frame, dev),
                 f"spawn draws, salt {salt}, frame {frame}"))
     print(f"phase 13: spawn draws of the bench scene, {total} rows, salts 0 "
           f"and 3, frames 0 and 20: u and dirs kernel == plain bit for bit")
     fill = nbody.fill_draws(cfg, cfg.n_fill)
-    err = max(err, same_bits(rk.flat_fields_cuda(fill, dev),
-                             rk.flat_fields_plain(fill, dev), "init_fill"))
+    err = max(err, same_bits(rk.flat_fields_cuda(fill, 0, dev),
+                             rk.flat_fields_plain(fill, 0, dev), "init_fill"))
     print(f"phase 13: init_fill's four draws at {cfg.n_fill} particles: "
           f"kernel == plain bit for bit")
 
     n = plateau_tags.numel()
+    f20 = torch.tensor(20, dtype=torch.int64, device=dev)
     main = time_threefry(
         f"n-body fields, plateau prefix {n} tags",
-        lambda: rk.nbody_fields_cuda(seed, 20, plateau_tags, lo, hi),
+        lambda: rk.nbody_fields_cuda(seed, f20, plateau_tags, lo, hi),
         lambda: rk.nbody_fields_plain(seed, 20, plateau_tags, lo, hi),
-        HASHES_PER_TAG * n, 24 * n)
+        *nbody_fields_work(n))
     for slots in (cfg.slots, NBODY_10M_SLOTS):
         tags = torch.arange(slots, device=dev)
-        ms = cuda_ms(lambda: rk.nbody_fields_cuda(seed, 20, tags, lo, hi),
+        ms = cuda_ms(lambda: rk.nbody_fields_cuda(seed, f20, tags, lo, hi),
                      20)
-        bound, by = threefry_bound(HASHES_PER_TAG * slots, 24 * slots)
+        bound, by = threefry_bound(*nbody_fields_work(slots))
         print(f"phase 13: n-body fields, {slots} tags: kernel {ms:.5f} ms, "
               f"bound {bound:.5f} ms ({by}), {bound / ms:.1%} of it")
         del tags
-    draws = em.spawn_draws(scene, 20, 0, total)
+    draws = em.spawn_draws(scene, 0, total)
+    # draw keys: the salt folded in (2 hashes), then 1 (3 hashes)
     time_threefry(f"spawn draws, {total} rows",
-                  lambda: rk.flat_fields_cuda(draws, dev),
-                  lambda: rk.flat_fields_plain(draws, dev),
-                  11 * total, 4 * 11 * total)
+                  lambda: rk.flat_fields_cuda(draws, f20, dev),
+                  lambda: rk.flat_fields_plain(draws, 20, dev),
+                  *flat_fields_work(11 * total, 9 * total, 2 + 3))
+    # draw keys: the split index folded in, 2 hashes a draw
     time_threefry(f"init_fill draws, {cfg.n_fill} particles",
-                  lambda: rk.flat_fields_cuda(fill, dev),
-                  lambda: rk.flat_fields_plain(fill, dev),
-                  8 * cfg.n_fill, 4 * 8 * cfg.n_fill)
+                  lambda: rk.flat_fields_cuda(fill, 0, dev),
+                  lambda: rk.flat_fields_plain(fill, 0, dev),
+                  *flat_fields_work(8 * cfg.n_fill, 8 * cfg.n_fill, 4 * 2))
     if shutil.which("cuobjdump") or shutil.which("nvcc"):
         for kernel, (count, ops) in threefry_sass().items():
             top = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
@@ -2414,6 +2503,295 @@ def phase_threefry(dev, plateau_tags):
     else:
         print("phase 13: sass not read: no cuobjdump on this machine")
     return dict(err=err, **main)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the frame loops as CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: engine frames of phase 14: two step_many calls, 120 frames
+GRAPH_ENGINE_STEPS = (64, 56)
+#: n-body batches of phase 14, 20 frames: the full-width key's warm-up,
+#: capture and replays; the prefix key's warm-up, capture and a replay;
+#: then replays only, timed
+GRAPH_NBODY_BATCHES = (10, 2, 8)
+#: frames of each phase-14 trace
+GRAPH_TRACE_FRAMES = 8
+
+
+def trace_frames(step, k: int) -> dict:
+    """``k`` calls of ``step`` (a frame each) under torch.profiler: kernels
+    and copies/sets a frame, device ms a frame, wall ms a frame and the
+    device's busy share (the tracer can miss events, so device time is a
+    lower bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(k):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    moves = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    return dict(kernels=(len(events) - len(moves)) / k, moves=len(moves) / k,
+                device_ms=busy_us / k / 1e3, wall_ms=wall_us / k / 1e3,
+                busy=busy_us / wall_us)
+
+
+def graph_nodes(fn):
+    """Nodes of a CUDA graph of ``fn``, captured on its own and never
+    replayed (its launches not counted), by libcuda's
+    ``cuGraphGetNodes``; None where this torch cannot hand over the
+    captured graph."""
+    import ctypes
+
+    import torch
+    from particlesystem_tpu_torch.utils.frame_graph import recording
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None
+    with recording(), torch.cuda.graph(graph,
+                                       capture_error_mode="thread_local"):
+        fn()
+    try:
+        raw = ctypes.c_void_p(int(graph.raw_cuda_graph()))
+    except (AttributeError, RuntimeError, TypeError):
+        return None
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(raw, None,
+                                                       ctypes.byref(n))
+    return None if err else n.value
+
+
+def graph_launch_checks(graphs, key, frames: int, kernels) -> str:
+    """The loop ran ``frames`` frames, each kernel of ``kernels`` once a
+    frame: ``eager + replays == frames``, the graph of ``key`` records each
+    kernel once, and the wrappers counted ``frames`` launches of each."""
+    names = {w: name for name, w in _wrappers().items()}
+    rec = {names[w]: n for w, n in graphs.recorded(key).items()}
+    assert rec == {k: 1 for k in kernels}, f"the graph records {rec}"
+    assert graphs.eager_frames + graphs.replays == frames, \
+        (graphs.eager_frames, graphs.replays, frames)
+    launches(**{k: frames for k in kernels})
+    return (f"{graphs.eager_frames} eager (captured {graphs.captures}) + "
+            f"{graphs.replays} replays = {frames} frames, each kernel "
+            f"({', '.join(kernels)}) recorded once a graph: {frames} "
+            f"launches each")
+
+
+def phase_graphs_nbody(dev, eager_kernels=None):
+    """14 (n-body): ``NBodyConfig()`` at full width, 20 frames of ``run``
+    through the frame graphs in batches of 10, 2 and 8 (the prefix engages
+    after the first; the last batch replays only) against 20 eager
+    ``nbody.step`` frames from the same state on the same prefix schedule:
+    every field, mask and stat bit-identical after each batch; ms a frame
+    of each in the last batch, the host's microseconds a replay, the
+    graph's nodes, kernels a frame in a trace of replays and the busy
+    share."""
+    import torch
+    from particlesystem_tpu_torch import NBodyConfig
+    from particlesystem_tpu_torch.api import NBodySimulation
+    from particlesystem_tpu_torch.core.state import FIELDS
+    from particlesystem_tpu_torch.models import nbody
+
+    cfg = NBodyConfig()
+    sim = NBodySimulation(cfg, device=dev)
+    ref = sim.state.map(lambda a: a.clone())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    frames = sum(GRAPH_NBODY_BATCHES)
+    reset_launches()
+    batches = []
+    for k in GRAPH_NBODY_BATCHES:
+        active = sim._active
+        start.record()
+        sim.run(k, batch=k)
+        end.record()
+        torch.cuda.synchronize()
+        batches.append(dict(k=k, active=active, ms=start.elapsed_time(end)
+                            / k, stats=sim.last_stats,
+                            state=sim.state.map(lambda a: a.clone()),
+                            next_active=sim._active))
+    key = sim._key()
+    counted = graph_launch_checks(sim.graphs, key, frames,
+                                  ("cluster_pair", "threefry_nbody"))
+
+    reset_launches()
+    frame = 0
+    for b in batches:
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(b["k"]):
+            ref, stats = nbody.step(ref, frame, cfg, "blocks", b["active"])
+            frame += 1
+        end.record()
+        b["eager_host_us"] = (time.perf_counter() - t0) * 1e6 / b["k"]
+        torch.cuda.synchronize()
+        b["eager_ms"] = start.elapsed_time(end) / b["k"]
+        for k, v in vars(stats).items():
+            assert int(v) == int(getattr(b["stats"], k)), \
+                f"frame {frame}: graph vs eager stat {k}"
+        if (b["next_active"] or cfg.slots) < (b["active"] or cfg.slots):
+            ref = nbody.compact_state(ref)
+        for f in FIELDS:
+            assert torch.equal(getattr(b["state"], f), getattr(ref, f)), \
+                f"frame {frame}: graph vs eager {f}"
+    launches(cluster_pair=frames, threefry_nbody=frames)
+    for f in FIELDS:
+        assert torch.equal(getattr(sim.state, f), getattr(ref, f))
+    del ref
+    for b in batches:
+        del b["state"]
+
+    # the loop's own frame function, as the graph runs it: the host's time
+    # a frame, a trace, the nodes (the static state runs on; not kept)
+    fn = lambda: sim._loop_frame(sim._active, sim._width)
+    step = lambda: sim.graphs.step(key, fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MAIN_ITERS):
+        step()
+    host_us = (time.perf_counter() - t0) * 1e6 / MAIN_ITERS
+    torch.cuda.synchronize()
+    trace = trace_frames(step, GRAPH_TRACE_FRAMES)
+    nodes = graph_nodes(fn)
+    last = batches[-1]
+    print(f"phase 14: n-body {cfg.n_fill} particles, {cfg.slots} slots, "
+          f"run() in batches of {GRAPH_NBODY_BATCHES} through frame graphs "
+          f"== {frames} eager nbody.step frames on the same prefixes "
+          f"({[b['active'] or cfg.slots for b in batches]}): every field, "
+          f"mask and stat bit-identical after each batch (alive "
+          f"{int(last['stats'].n_alive)}); {counted}")
+    print(f"phase 14: n-body ms a frame, frames {frames - last['k'] + 1}-"
+          f"{frames} (replays only): graphs {last['ms']:.4f}, eager "
+          f"{last['eager_ms']:.4f}; the earlier batches, each with a key's "
+          f"warm-up frame and capture: graphs "
+          f"{[round(b['ms'], 4) for b in batches[:-1]]}, eager "
+          f"{[round(b['eager_ms'], 4) for b in batches[:-1]]}; the host's "
+          f"microseconds a frame: {host_us:.1f} a replay, "
+          f"{last['eager_host_us']:.1f} an eager frame; graph nodes "
+          f"{'not measured' if nodes is None else nodes}; a trace of "
+          f"{GRAPH_TRACE_FRAMES} replays: {trace['kernels']:.1f} kernels "
+          f"and {trace['moves']:.1f} copies/sets a frame"
+          + ("" if eager_kernels is None else
+             f" ({eager_kernels} kernels and copies in phase 4's eager "
+             f"frame)")
+          + f", {trace['device_ms']:.4f} ms of device time in "
+          f"{trace['wall_ms']:.4f} ms a frame, device busy "
+          f"{trace['busy']:.1%}")
+    return dict(ms=last["ms"], eager_ms=last["eager_ms"], host_us=host_us,
+                nodes=nodes, **trace)
+
+
+def phase_graphs_dense(dev):
+    """14 (dense): ``NBodySimulation(impl="dense")`` through its frame
+    graphs on the card (keys changing with the adaptive list width)
+    against the same loop on the CPU, at phase 3's config: stats and
+    masks exact, floats by the chaotic-trajectory rule."""
+    import numpy as np
+    from particlesystem_tpu_torch import GridSpec, NBodyConfig
+    from particlesystem_tpu_torch.api import NBodySimulation
+    from particlesystem_tpu_torch.core.state import state_to_numpy
+
+    cfg = NBodyConfig(n_fill=2000, capacity=4096, max_per_cell=48, seed=3,
+                      grid=GridSpec(grid_dim=4, cell_size=5.0,
+                                    chunk_factor=2))  # DENSE
+    sims = [NBodySimulation(cfg, device=d, impl="dense",
+                            active_bucketing=False) for d in (dev, "cpu")]
+    widths = []
+    for _ in range(4):
+        widths.append(sims[0]._width)
+        stats = [sim.run(2, batch=2) for sim in sims]
+        for k, v in vars(stats[1]).items():
+            assert int(getattr(stats[0], k)) == int(v), f"dense: {k}"
+        a, b = (state_to_numpy(sim.state) for sim in sims)
+        for f in ("alive", "parent"):
+            assert np.array_equal(a[f], b[f]), f"dense: {f}"
+        for f in ("pos", "vel", "age", "life", "w"):
+            assert_close_chaotic(a[f], b[f], f"dense {f}")
+    g = sims[0].graphs
+    assert g.captures >= (dev.type == "cuda"), "no graph captured"
+    assert g.eager_frames + g.replays == 8, \
+        (g.eager_frames, g.replays)
+    print(f"phase 14: dense, {cfg.n_fill} particles, run(2) four times "
+          f"through frame graphs on the card == the same loop on the CPU "
+          f"(stats and masks exact), list widths {widths}; "
+          f"{g.eager_frames} eager (captured {g.captures}) + {g.replays} "
+          f"replays")
+
+
+def phase_graphs_engine(dev):
+    """14 (emitter): ``PackedEngine`` select/packed8 at 10,485,760 slots
+    from an all-alive state, ``step_many(64)`` then ``(56)`` through the
+    frame graph against 120 eager frames (``PackedEngine._frame``) from
+    the same state: every tensor of the state bit-identical; ms a frame of
+    each, the host's microseconds a replay, kernels a frame in a trace of
+    replays and the busy share."""
+    import torch
+    from particlesystem_tpu_torch.runtime.engine import PackedEngine
+
+    cfg = bench_scene(EMIT_SLOTS)
+    init = full_packed(EMIT_SLOTS, 27)
+    eng = PackedEngine(cfg, alloc="select", layout="packed8", device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_launches()
+    es = eng.init(init)
+    ms = []
+    for k in GRAPH_ENGINE_STEPS:
+        start.record()
+        es = eng.step_many(es, k)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end) / k)
+    frames = sum(GRAPH_ENGINE_STEPS)
+    counted = graph_launch_checks(eng.graphs, False, frames,
+                                  ("physics_step", "threefry_flat"))
+    reset_launches()
+    ref = eng.init(init)
+    eager_ms = []
+    for k in GRAPH_ENGINE_STEPS:
+        start.record()
+        for _ in range(k):
+            ref = eng._frame(ref)
+        end.record()
+        torch.cuda.synchronize()
+        eager_ms.append(start.elapsed_time(end) / k)
+    launches(physics_step=frames, threefry_flat=frames)
+    assert ref.frame == es.frame == frames
+    for i, (a, b) in enumerate(zip(es.tensors(), ref.tensors(), strict=True)):
+        assert torch.equal(a, b), f"engine: graph vs eager, tensor {i}"
+    n_alive = int(eng.alive_count(es))
+    del ref
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    es = eng.step_many(es, GRAPH_ENGINE_STEPS[0])
+    host_us = (time.perf_counter() - t0) * 1e6 / GRAPH_ENGINE_STEPS[0]
+    torch.cuda.synchronize()
+    trace = trace_frames(lambda: eng.step_many(es, 1), GRAPH_TRACE_FRAMES)
+    print(f"phase 14: engine {EMIT_SLOTS} slots select/packed8: "
+          f"step_many({GRAPH_ENGINE_STEPS[0]}) and "
+          f"({GRAPH_ENGINE_STEPS[1]}) through the frame graph == {frames} "
+          f"eager frames: every tensor of the state bit-identical (alive "
+          f"{n_alive}); {counted}")
+    print(f"phase 14: engine ms a frame: graphs {ms[1]:.4f} over "
+          f"step_many({GRAPH_ENGINE_STEPS[1]}) ({ms[0]:.4f} over "
+          f"({GRAPH_ENGINE_STEPS[0]}), with the warm-up and capture), "
+          f"eager {eager_ms[1]:.4f} ({eager_ms[0]:.4f}); the host's "
+          f"microseconds a frame {host_us:.1f} a replay; a trace of "
+          f"{GRAPH_TRACE_FRAMES} replays: {trace['kernels']:.1f} kernels "
+          f"and {trace['moves']:.1f} copies/sets a frame, "
+          f"{trace['device_ms']:.4f} ms of device time in "
+          f"{trace['wall_ms']:.4f} ms a frame, device busy "
+          f"{trace['busy']:.1%}")
+    return dict(ms=ms[1], eager_ms=eager_ms[1], host_us=host_us, **trace)
 
 
 def main() -> int:
@@ -2453,6 +2831,9 @@ def main() -> int:
     phase_cli_launcher(("cuda:0", "cpu"))
     phase_tools(dev)
     rng = phase_threefry(dev, main_path.pop("plateau_tags"))
+    phase_graphs_nbody(dev, main_path["eager_kernels"])
+    phase_graphs_dense(dev)
+    phase_graphs_engine(dev)
 
     kernels = [{
         "name": "cluster_pair",

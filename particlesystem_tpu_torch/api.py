@@ -8,14 +8,23 @@ BASELINE configs: emitters, force list, dt, particle capacity) and
 per-phase timing.  Both run on the card unless the caller passes
 ``device="cpu"``.
 
-``NBodySimulation.run(batch=k)`` queues ``k`` frames with no host
+``NBodySimulation.run(batch=k)`` runs ``k`` frames with no host
 synchronisation in between: the contract guards accumulate on the device
-and the host reads them once per batch.  ``run(batch=1)`` reads every
-frame's statistics.
+and the host reads them once per batch (``run(batch=1)``: once a frame).
+On a card every frame is one replay of a CUDA graph of the frame
+(``utils/frame_graph.FrameGraphs``), the counterpart of the JAX package's
+jitted frame and ``fori_loop`` batch: the graph reads the state, the
+frame index and the guard accumulators from static buffers and writes
+them back.  Graphs are keyed by ``(impl, active prefix, list width)``, as
+the JAX package keys its loop programs, and a graph is freed at the first
+batch under another key.  On the CPU the same loop runs its frame
+function eagerly on the same buffers.  ``ParticleSystem.step`` goes
+through ``PackedEngine.step_many``, which replays the engine's frame graph.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 import warnings
 from typing import Optional
@@ -25,12 +34,17 @@ import torch
 
 from .core.config import (Emitter, EmitterSceneConfig, NBodyConfig,
                           PlaneCollider, SphereCollider)
+from .core.state import FIELDS
 from .models import nbody
 from .runtime import checkpoint
 from .runtime.engine import EngineState, PackedEngine
 from .runtime.readback import AsyncReadback
 from .utils.device import resolve_device
+from .utils.frame_graph import FrameGraphs
 from .utils.timers import PhaseTimers
+
+#: the statistics a frame leaves in the loop's static buffer, in order
+STAT_FIELDS = tuple(f.name for f in dataclasses.fields(nbody.NBodyStats))
 
 
 def auto_batch(num_iterations: int, cap: int = 16) -> int:
@@ -200,7 +214,14 @@ class NBodySimulation:
     reference beside the kernel).  With ``adaptive_width`` its cell lists
     are as wide as the last observed cell occupancy needs
     (:meth:`_pick_width`); a frame or batch that the narrowed lists
-    truncated is redone at full width, so no degraded frame is kept."""
+    truncated is redone at full width, so no degraded frame is kept.
+
+    The frame loop (:meth:`run`): ``self.state`` is the static state the
+    frame graphs read and write, and keeps its tensors from frame to
+    frame; a state assigned to it (``load``, the compaction of
+    :meth:`_apply_bucketing`, a caller) is copied into those tensors at
+    the next batch.  ``graphs`` counts the eager frames, captures and
+    replays."""
 
     BUCKETS = (64, 128, 192, 256, 384, 512, 768, 1024)
 
@@ -222,6 +243,16 @@ class NBodySimulation:
         self.n_degraded_frames = 0  # frames whose neighbor pass truncated
         self._width = 0  # 0 = full cell_capacity (always exact)
         self._active = 0  # 0 = full slots
+        # the frame loop's static buffers: the state, the frame on the
+        # device, the guards (max spawns capped, max alive rows beyond the
+        # prefix, chunks dropped, over a batch) and the last frame's stats
+        dev = self.device
+        self.graphs = FrameGraphs(dev)
+        self._static = self.state
+        self._frame_t = torch.zeros((), dtype=torch.int64, device=dev)
+        self._guards = torch.zeros((3,), dtype=torch.int64, device=dev)
+        self._stats = torch.zeros((len(STAT_FIELDS),), dtype=torch.int64,
+                                  device=dev)
 
     def _pick_width(self, max_occ: int) -> int:
         """Bucketized list width with 25% headroom over the last observed
@@ -254,7 +285,7 @@ class NBodySimulation:
             # grow: a pure re-slice, containment keeps the prefix invariant
             self._active = want
 
-    def _step(self, state, frame: int):
+    def _step(self, state, frame):
         return nbody.step(state, frame, self.cfg, self.impl, self._active,
                           self._width)
 
@@ -277,55 +308,53 @@ class NBodySimulation:
                           f"forces truncated; raise the chunk budget",
                           RuntimeWarning, stacklevel=3)
 
-    def _batch(self, prev, batch: int):
-        """``batch`` frames from ``prev`` with the guards accumulated on the
-        device; returns (state, last stats, the six guard values read in
-        the batch's one host sync)."""
-        state = prev
-        mc = mt = nd = None
-        for i in range(batch):
-            state, stats = self._step(state, self.frame + i)
-            # guards over EVERY frame: spawn capping and drops are
-            # transient, the last frame alone could miss them
-            if mc is None:
-                mc, mt = stats.n_spawn_capped, stats.n_tail_alive
-                nd = stats.n_listed_dropped
-            else:
-                mc = torch.maximum(mc, stats.n_spawn_capped)
-                mt = torch.maximum(mt, stats.n_tail_alive)
-                nd = nd + stats.n_listed_dropped
-        guards = torch.stack([
-            mc, mt, nd, stats.n_alive, stats.max_cell_occupancy,
-            stats.n_spawned]).tolist()
-        return state, stats, guards
+    def _key(self):
+        """What a frame graph bakes in: the pass, the active prefix and the
+        list width (the JAX package's ``_loop_jits`` key, less the batch:
+        one frame's graph serves every batch)."""
+        return (self.impl, self._active, self._width)
 
-    def _run_batched(self, num_iterations: int, batch: int, verbose: bool):
-        if num_iterations % batch:
-            raise ValueError(f"num_iterations {num_iterations} must be a "
-                             f"multiple of batch {batch}")
-        for _ in range(num_iterations // batch):
-            with self.timers.phase("step"):
-                prev = self.state
-                self.state, stats, guards = self._batch(prev, batch)
-                if guards[2] and self._width != 0:
-                    # the adaptive width truncated some frame of the batch:
-                    # redo the whole batch from the saved state at full
-                    # width, which is exact by construction
-                    self._width = 0
-                    self.state, stats, guards = self._batch(prev, batch)
-            self.frame += batch
-            self.last_stats = stats
-            self._check_guards(f"batch ending at frame {self.frame}",
-                               guards[0], guards[1], guards[2])
-            if self.active_bucketing:
-                self._apply_bucketing(guards[3])
-            self._adapt_width(guards[4], guards[2])
-            if verbose:
-                print(f"iter {self.frame}: alive={guards[3]} "
-                      f"last_spawned={guards[5]} max_cell={guards[4]} "
-                      f"active={self._active or self.cfg.slots}"
-                      + self._width_note())
-        return self.last_stats
+    def _loop_frame(self, active: int, width: int) -> None:
+        """The frame the graphs capture: the static state to the next in
+        place, the guards and stats into their buffers, the device frame
+        one on."""
+        stats = nbody.step_into(self._static, self._frame_t, self.cfg,
+                                self.impl, active, width)
+        vals = torch.stack([getattr(stats, f) for f in STAT_FIELDS])
+        self._stats.copy_(vals)
+        g = self._guards
+        # guards over EVERY frame: spawn capping and drops are transient,
+        # the last frame alone could miss them
+        g.copy_(torch.stack([torch.maximum(g[0], stats.n_spawn_capped),
+                             torch.maximum(g[1], stats.n_tail_alive),
+                             g[2] + stats.n_listed_dropped]))
+        self._frame_t.add_(1)
+
+    def _batch(self, batch: int):
+        """``batch`` frames from ``self.state`` through the frame graph of
+        the current key (freeing the others), in place; returns (the last
+        frame's stats, the six guard values [max spawns capped, max tail
+        alive, chunks dropped, alive, max cell occupancy, spawned] read in
+        the batch's one host sync)."""
+        if self.state is not self._static:
+            for f in FIELDS:
+                getattr(self._static, f).copy_(getattr(self.state, f))
+            self.state = self._static
+        self._frame_t.fill_(self.frame)
+        self._guards.zero_()
+        key = self._key()
+        self.graphs.retain(key)
+        fn = lambda: self._loop_frame(self._active, self._width)
+        for _ in range(batch):
+            self.graphs.step(key, fn)
+        host = torch.cat([self._guards, self._stats]).tolist()
+        stats = dict(zip(STAT_FIELDS, host[3:]))
+        # a copy: the next batch overwrites the buffer
+        last = nbody.NBodyStats(**dict(zip(STAT_FIELDS,
+                                           self._stats.clone().unbind())))
+        return last, host[:3] + [stats["n_alive"],
+                                 stats["max_cell_occupancy"],
+                                 stats["n_spawned"]]
 
     def _width_note(self) -> str:
         if self.impl != "dense":
@@ -336,38 +365,44 @@ class NBodySimulation:
             batch: int = 0):
         """Advance ``num_iterations`` frames.
 
-        ``batch=0`` auto-batches (:func:`auto_batch`); ``batch=k > 1``
-        queues ``k`` frames per host synchronisation, with the guards
+        ``batch=0`` auto-batches (:func:`auto_batch`); ``batch=k`` runs
+        ``k`` frames per host synchronisation, with the guards
         (``n_tail_alive``, ``n_spawn_capped``, ``n_listed_dropped``)
         accumulated on the device and checked at batch boundaries;
         ``batch=1`` reads each frame's statistics and reacts per frame.
-        ``num_iterations`` must be a multiple of ``batch``."""
+        ``num_iterations`` must be a multiple of ``batch``.  On a card
+        every frame is one replay of the current key's frame graph, after
+        the key's first frame, which runs eagerly and is then captured."""
         if batch == 0:
             batch = auto_batch(num_iterations)
-        if batch > 1:
-            return self._run_batched(num_iterations, batch, verbose)
-        for _ in range(num_iterations):
+        if num_iterations % batch:
+            raise ValueError(f"num_iterations {num_iterations} must be a "
+                             f"multiple of batch {batch}")
+        for _ in range(num_iterations // batch):
             with self.timers.phase("step"):
-                prev = self.state  # kept so a truncated frame can be redone
-                self.state, stats = self._step(prev, self.frame)
-                s = {k: int(v) for k, v in vars(stats).items()}
-                if s["n_listed_dropped"] and self._width != 0:
-                    # occupancy spiked past the adaptive width: redo this
-                    # frame from the saved state at full width
+                # kept so a truncated batch can be redone at full width
+                prev = (self.state.map(lambda a: a.clone())
+                        if self._width != 0 else None)
+                stats, guards = self._batch(batch)
+                if guards[2] and self._width != 0:
+                    # the adaptive width truncated some frame of the batch:
+                    # redo the whole batch from the saved state at full
+                    # width, which is exact by construction
                     self._width = 0
-                    self.state, stats = self._step(prev, self.frame)
-                    s = {k: int(v) for k, v in vars(stats).items()}
-            self.frame += 1
+                    self.state = prev
+                    stats, guards = self._batch(batch)
+            self.frame += batch
             self.last_stats = stats
-            self._check_guards(f"frame {self.frame}", s["n_spawn_capped"],
-                               s["n_tail_alive"], s["n_listed_dropped"])
+            where = (f"frame {self.frame}" if batch == 1
+                     else f"batch ending at frame {self.frame}")
+            self._check_guards(where, guards[0], guards[1], guards[2])
             if self.active_bucketing:
-                self._apply_bucketing(s["n_alive"])
-            self._adapt_width(s["max_cell_occupancy"], s["n_listed_dropped"])
+                self._apply_bucketing(guards[3])
+            self._adapt_width(guards[4], guards[2])
             if verbose:
-                print(f"iter {self.frame}: alive={s['n_alive']} "
-                      f"spawned={s['n_spawned']} "
-                      f"max_cell={s['max_cell_occupancy']} "
+                spawned = "spawned" if batch == 1 else "last_spawned"
+                print(f"iter {self.frame}: alive={guards[3]} "
+                      f"{spawned}={guards[5]} max_cell={guards[4]} "
                       f"active={self._active or self.cfg.slots}"
                       + self._width_note())
         return self.last_stats
@@ -426,7 +461,9 @@ class NBodySimulation:
         from .ops.grid import build_bins, coords_to_cell, wrap_positions
         from .ops.neighbor import collision_okey
 
-        cfg, frame = self.cfg, self.frame
+        cfg = self.cfg
+        # the frame on the device, as the loop's frames take it
+        frame = self._frame_t.fill_(self.frame)
         state = self.state
         if self._active and self._active < state.slots:
             state = state.map(lambda a: a[:self._active])

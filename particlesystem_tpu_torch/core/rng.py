@@ -15,12 +15,21 @@ This module reproduces ``jax.random`` as jax 0.9 computes it with
 
 uint32 values live in int64 tensors (or Python ints) and every operation
 masks back to 32 bits; no product exceeds 2^63.  Keys are ``(k1, k2)``
-pairs of Python ints (frame-level keys, computed on the host) or int64
-tensors (per-tag keys, computed on the device).
+pairs of Python ints (computed on the host) or int64 tensors (computed on
+the device: per-tag keys, and frame keys of a frame index held on the
+device as a 0-dim tensor, JAX's traced ``int32``).  A frame index enters
+as a Python int or a 0-dim int64 tensor, and both give the same bits.
+
+:class:`FrameKey` names a key that depends on the frame without the
+frame: the purpose key, then the frame, then up to two constant words
+folded in.  That is what the threefry kernel (``ops/rng_kernel.py``)
+takes, so a CUDA graph that reads the frame from device memory draws each
+replay's own randomness.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -77,21 +86,59 @@ def _purpose_key(seed: int, purpose: int):
     return fold_in(key(seed), purpose)
 
 
-def frame_key(seed: int, frame: int, purpose: int):
+def frame_key(seed: int, frame, purpose: int):
     """``fold_in(fold_in(key(seed), purpose), frame)``; the first hash,
     the same every frame, is computed once (a hash of host ints takes
-    some 16 microseconds of Python)."""
+    some 16 microseconds of Python).  ``frame`` a Python int gives a host
+    key, a 0-dim tensor a key of 0-dim tensors."""
     return fold_in(_purpose_key(seed, purpose), frame)
+
+
+#: constant words a :class:`FrameKey` folds in after the frame
+MAX_WORDS = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameKey:
+    """``fold_in(... fold_in(frame_key(seed, frame, purpose), words[0])
+    ..., words[-1])``, given the frame: the spawn draws' ``fold_in(base,
+    salt)`` and ``fold_in(.., 1)``, ``init_fill``'s ``split(k, 4)[i]``
+    (``split(k)[i]`` is ``fold_in(k, i)``)."""
+
+    seed: int
+    purpose: int
+    words: tuple = ()
+
+    def __post_init__(self):
+        if len(self.words) > MAX_WORDS:
+            raise ValueError(f"a frame key folds in at most {MAX_WORDS} "
+                             f"words, got {len(self.words)}")
+
+    def fold(self, word: int) -> "FrameKey":
+        return FrameKey(self.seed, self.purpose, self.words + (int(word),))
+
+    @property
+    def purpose_key(self):
+        return _purpose_key(self.seed, self.purpose)
+
+    def at(self, frame):
+        """The key at ``frame`` (an int: host ints; a 0-dim tensor:
+        0-dim tensors)."""
+        k = frame_key(self.seed, frame, self.purpose)
+        for w in self.words:
+            k = fold_in(k, w)
+        return k
 
 
 def random_bits(k, shape, device) -> torch.Tensor:
     """32-bit draws of ``shape`` (int64 tensor of uint32 values).  A key of
     int64 tensors of shape ``(T,)`` gives one draw of ``shape`` per key,
-    stacked to ``(T, *shape)``."""
+    stacked to ``(T, *shape)``; a key of 0-dim tensors draws as a host key
+    does."""
     count = torch.arange(math.prod(shape), dtype=torch.int64,
                          device=device).reshape(shape)
     k1, k2 = k
-    if isinstance(k1, torch.Tensor):
+    if isinstance(k1, torch.Tensor) and k1.dim():
         expand = (-1,) + (1,) * len(shape)
         k1, k2 = k1.reshape(expand), k2.reshape(expand)
     b1, b2 = threefry2x32(k1, k2, count >> 32, count & M32)
@@ -115,10 +162,11 @@ def uniform(k, shape, lo, hi, device) -> torch.Tensor:
     return lo + uniform01(k, shape, device) * (hi - lo)
 
 
-def tag_mix(tag: torch.Tensor, frame: int) -> torch.Tensor:
+def tag_mix(tag: torch.Tensor, frame) -> torch.Tensor:
     """Child tag from (parent tag, frame): ``tag*2654435761 +
-    frame*2246822519 + 977`` mod 2^32 (Knuth multiplicative mixing).  The
-    tag product is split at 16 bits of the multiplier so every int64
+    frame*2246822519 + 977`` mod 2^32 (Knuth multiplicative mixing), the
+    frame a Python int or a 0-dim int64 tensor below 2^31 (JAX's int32).
+    The tag product is split at 16 bits of the multiplier so every int64
     product stays below 2^48."""
     m = 2654435761
     t = tag & M32

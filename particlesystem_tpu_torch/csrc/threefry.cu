@@ -24,22 +24,33 @@
 //   ps_nbody_frame_fields  one thread a tag (int64 tags, masked to 32 bits):
 //                          uvec (T, 3) the lattice vector of 3 uniforms
 //                          under fold_in(kU, tag); fert (T,) lo + u*span,
-//                          u under fold_in(kF, tag)
+//                          u under fold_in(kF, tag); kU and kF are
+//                          fold_in(purpose key, frame)
 //   ps_flat_fields         up to 4 flat draws into one float32 buffer, one
 //                          after the other: uniforms, lo + u*span, or
-//                          lattice unit vectors (3 counters a row)
+//                          lattice unit vectors (3 counters a row), each
+//                          under fold_in(purpose key, frame) with up to
+//                          two constant words folded in after it (the
+//                          spawn draws' salt, then 1; init_fill's split
+//                          index i, since split(k)[i] = fold_in(k, i))
 //
-// The frame-level keys are host values: they travel in the kernel's
-// parameter block, never through device memory.
+// The frame is read from device memory (a 0-dim int64, masked to 32 bits):
+// a CUDA graph that captures a launch replays it at each frame's own
+// index, where a frame key in the parameter block would freeze the
+// captured frame's.  The purpose keys and the words, the same every
+// frame, travel in the parameter block.  Each block derives its keys once
+// (one lane of its first warp a key) into shared memory, and its threads
+// read them after one __syncthreads().
 //
 // What bounds it on the card: the instruction rate.  A hash is about 72
 // integer instructions (per round one add, one SHF, one LOP3; then the key
 // injections; ptxas spreads the adds over IADD3 and IMAD, so they go to
 // the INT32 and the FMA lanes alike), an n-body tag costs 6 hashes (two
-// fold_ins, four draws) against 24 bytes (8 in, 16 out): at the 1M
-// plateau prefix of 786,432 tags some 3.4e8 instructions at 128 lanes an
-// SM a clock, against 18.9 MB at 3.35 TB/s, so the instructions take
-// about twice as long as the bytes.
+// fold_ins, four draws) against 24 bytes (8 in, 16 out), and each block
+// 2 more for its keys (a flat draw: 1 to 3 a draw): at the 1M plateau
+// prefix of 786,432 tags (3,072 blocks of 256) some 3.4e8 instructions at
+// 128 lanes an SM a clock, against 18.9 MB at 3.35 TB/s, so the
+// instructions take about twice as long as the bytes.
 //
 // What the design does about it: each hash lives in registers, its rounds
 // unrolled, each rotation one funnel shift; a tag's six hashes run in one
@@ -61,6 +72,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int MAX_BLOCKS = 132 * 16;
 constexpr int MAX_DRAWS = 4;
+constexpr int MAX_WORDS = 2;
 constexpr uint32_t PARITY = 0x1BD11BDAu;
 
 enum Kind : int { UNIT = 0, AFFINE = 1, LATTICE = 2 };
@@ -70,7 +82,9 @@ struct Key {
 };
 
 struct Draw {
-    uint32_t k1, k2;
+    uint32_t k1, k2;   // purpose key
+    int n_words;       // words folded in after the frame
+    uint32_t words[MAX_WORDS];
     long long start;   // first item of the draw, over all draws' items
     long long offset;  // first float of its output in the buffer
     int kind;
@@ -145,40 +159,73 @@ __device__ __forceinline__ void lattice(float u0, float u1, float u2,
     }
 }
 
+// fold_in(k, frame): the frame's key of purpose key k
+__device__ __forceinline__ uint2 at_frame(Key k, const long long* frame)
+{
+    return threefry(k.k1, k.k2, 0u, static_cast<uint32_t>(*frame));
+}
+
 __global__ void __launch_bounds__(THREADS) nbody_frame_fields(
     const long long* __restrict__ tags, long long n, float* __restrict__ uvec,
-    float* __restrict__ fert, Key ku, Key kf, float lo, float span)
+    float* __restrict__ fert, const long long* __restrict__ frame, Key pu,
+    Key pf, float lo, float span)
 {
+    __shared__ uint2 keys[2];
+    if (threadIdx.x < 2) keys[threadIdx.x] = at_frame(threadIdx.x ? pf : pu,
+                                                      frame);
+    __syncthreads();
+    const uint2 ku = keys[0];
+    const uint2 kf = keys[1];
     const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
     for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x
                        + threadIdx.x;
          t < n; t += stride) {
         const uint32_t tag = static_cast<uint32_t>(tags[t]);
-        const uint2 k = threefry(ku.k1, ku.k2, 0u, tag);
+        const uint2 k = threefry(ku.x, ku.y, 0u, tag);
         lattice(uniform(k.x, k.y, 0), uniform(k.x, k.y, 1),
                 uniform(k.x, k.y, 2), uvec + 3 * t);
-        const uint2 f = threefry(kf.k1, kf.k2, 0u, tag);
+        const uint2 f = threefry(kf.x, kf.y, 0u, tag);
         fert[t] = __fadd_rn(lo, __fmul_rn(uniform(f.x, f.y, 0), span));
     }
 }
 
 __global__ void __launch_bounds__(THREADS) flat_fields(
-    float* __restrict__ out, Draws draws)
+    float* __restrict__ out, const long long* __restrict__ frame, Draws draws)
 {
+    // draw g's key, by lane g of the first warp (every index into the
+    // parameter block constant, so nothing of it is copied to the stack)
+    __shared__ uint2 keys[MAX_DRAWS];
+#pragma unroll
+    for (int g = 0; g < MAX_DRAWS; ++g) {
+        if (threadIdx.x == g && g < draws.n) {
+            const Draw& d = draws.d[g];
+            uint2 k = at_frame(Key{d.k1, d.k2}, frame);
+#pragma unroll
+            for (int j = 0; j < MAX_WORDS; ++j)
+                if (j < d.n_words) k = threefry(k.x, k.y, 0u, d.words[j]);
+            keys[g] = k;
+        }
+    }
+    __syncthreads();
     const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
     for (long long w = static_cast<long long>(blockIdx.x) * blockDim.x
                        + threadIdx.x;
          w < draws.items; w += stride) {
         Draw d = draws.d[0];
+        int g = 0;
 #pragma unroll
-        for (int g = 1; g < MAX_DRAWS; ++g)
-            if (g < draws.n && w >= draws.d[g].start) d = draws.d[g];
+        for (int h = 1; h < MAX_DRAWS; ++h)
+            if (h < draws.n && w >= draws.d[h].start) {
+                d = draws.d[h];
+                g = h;
+            }
+        const uint2 k = keys[g];
         const unsigned long long i = w - d.start;
         if (d.kind == LATTICE) {
-            lattice(uniform(d.k1, d.k2, 3 * i), uniform(d.k1, d.k2, 3 * i + 1),
-                    uniform(d.k1, d.k2, 3 * i + 2), out + d.offset + 3 * i);
+            lattice(uniform(k.x, k.y, 3 * i), uniform(k.x, k.y, 3 * i + 1),
+                    uniform(k.x, k.y, 3 * i + 2), out + d.offset + 3 * i);
         } else {
-            const float u = uniform(d.k1, d.k2, i);
+            const float u = uniform(k.x, k.y, i);
             out[d.offset + i] =
                 d.kind == AFFINE ? __fadd_rn(d.lo, __fmul_rn(u, d.span)) : u;
         }
@@ -193,38 +240,44 @@ int blocks_for(long long items)
 
 }  // namespace
 
-// uvec (n, 3) and fert (n,) float32 of the n int64 tags; (ku1, ku2) and
-// (kf1, kf2) are the frame's UVEC and FERT keys, lo and span float32.
+// uvec (n, 3) and fert (n,) float32 of the n int64 tags at the frame
+// *frame (a device pointer); (pu1, pu2) and (pf1, pf2) are the UVEC and
+// FERT purpose keys, lo and span float32.
 extern "C" int ps_nbody_frame_fields(
     const long long* tags, long long n, float* uvec, float* fert,
-    unsigned int ku1, unsigned int ku2, unsigned int kf1, unsigned int kf2,
-    float lo, float span, void* stream)
+    const long long* frame, unsigned int pu1, unsigned int pu2,
+    unsigned int pf1, unsigned int pf2, float lo, float span, void* stream)
 {
-    if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (n < 0 || frame == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0) return 0;
     nbody_frame_fields<<<blocks_for(n), THREADS, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-        tags, n, uvec, fert, Key{ku1, ku2}, Key{kf1, kf2}, lo, span);
+        tags, n, uvec, fert, frame, Key{pu1, pu2}, Key{pf1, pf2}, lo, span);
     return static_cast<int>(cudaGetLastError());
 }
 
-// n_draws draws into out, one after the other: draw g has key
-// (keys[2g], keys[2g+1]), items[g] items of kind kinds[g] (UNIT and AFFINE:
-// one float an item; LATTICE: a row of 3 floats) and, for AFFINE,
-// lo = affine[2g], span = affine[2g+1].  keys, items, kinds and affine are
-// host arrays.
+// n_draws draws into out at the frame *frame (a device pointer), one after
+// the other: draw g has purpose key (keys[2g], keys[2g+1]) and n_words[g]
+// words words[2g..] folded in after the frame, items[g] items of kind
+// kinds[g] (UNIT and AFFINE: one float an item; LATTICE: a row of 3
+// floats) and, for AFFINE, lo = affine[2g], span = affine[2g+1].  keys,
+// n_words, words, items, kinds and affine are host arrays.
 extern "C" int ps_flat_fields(
-    float* out, int n_draws, const unsigned int* keys, const long long* items,
+    float* out, int n_draws, const long long* frame, const unsigned int* keys,
+    const int* n_words, const unsigned int* words, const long long* items,
     const int* kinds, const float* affine, void* stream)
 {
-    if (n_draws < 1 || n_draws > MAX_DRAWS)
+    if (n_draws < 1 || n_draws > MAX_DRAWS || frame == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
     Draws draws = {};
     long long start = 0, offset = 0;
     for (int g = 0; g < n_draws; ++g) {
-        if (items[g] < 0 || kinds[g] < UNIT || kinds[g] > LATTICE)
+        if (items[g] < 0 || kinds[g] < UNIT || kinds[g] > LATTICE
+            || n_words[g] < 0 || n_words[g] > MAX_WORDS)
             return static_cast<int>(cudaErrorInvalidValue);
-        draws.d[g] = Draw{keys[2 * g], keys[2 * g + 1], start, offset,
+        draws.d[g] = Draw{keys[2 * g], keys[2 * g + 1], n_words[g],
+                          {words[2 * g], words[2 * g + 1]}, start, offset,
                           kinds[g], affine[2 * g], affine[2 * g + 1]};
         start += items[g];
         offset += kinds[g] == LATTICE ? 3 * items[g] : items[g];
@@ -233,6 +286,6 @@ extern "C" int ps_flat_fields(
     draws.items = start;
     if (start == 0) return 0;
     flat_fields<<<blocks_for(start), THREADS, 0,
-                  static_cast<cudaStream_t>(stream)>>>(out, draws);
+                  static_cast<cudaStream_t>(stream)>>>(out, frame, draws);
     return static_cast<int>(cudaGetLastError());
 }

@@ -4,10 +4,12 @@ multi-device n-body.
 Counterparts of the JAX package's ``__graft_entry__.py``:
 
 * :func:`entry` returns ``(fn, example_args)`` for one
-  ``PackedEngine._frame`` of the flagship emitter scene (BASELINE config-5
+  ``PackedEngine.step`` of the flagship emitter scene (BASELINE config-5
   shape: two emitters, the full force stack, a plane and a sphere,
-  ``alloc="select"``, the bench's path) at 1<<16 slots; on a card that
-  frame launches the physics kernel.
+  ``alloc="select"``, the bench's path) at 1<<16 slots: the engine's
+  frame graph, what the JAX caller's ``jax.jit`` of the frame is; on a
+  card each call after the first is one replay, which launches the
+  physics kernel.
 * :func:`dryrun_multichip` runs one frame of each spatial decomposition
   the rank count allows (slab; pencil ``(n/2, 2)`` when n is even and at
   least 4; brick ``(n/4, 2, 2)`` when n is a multiple of 8) on ``n`` ranks
@@ -49,9 +51,10 @@ def entry_scene() -> EmitterSceneConfig:
 
 def entry(device="cuda"):
     """(fn, example_args): one frame of the emitter engine on ``device``,
-    ``fn(*example_args)`` the state after it."""
+    ``fn(*example_args)`` the state after it (the engine's static state,
+    which the next call overwrites)."""
     eng = PackedEngine(entry_scene(), alloc="select", device=device)
-    return eng._frame, (eng.init(),)
+    return eng.step, (eng.init(),)
 
 
 def dryrun_config(n_devices: int, chunk_factor: int) -> NBodyConfig:

@@ -103,22 +103,23 @@ class SpawnTable:
         self.weight = per_row(lambda e: e.weight)
 
 
-def spawn_draws(cfg: EmitterSceneConfig, frame: int, salt: int,
-                total: int) -> list:
+def spawn_draws(cfg: EmitterSceneConfig, salt: int, total: int) -> list:
     """A frame's two spawn draws over ``total`` rows: a ``(total, 8)``
     uniform draw under ``base = fold_in(frame_key(seed, frame, EMIT),
     salt)`` and ``total`` unit vectors under ``fold_in(base, 1)``, drawn in
-    one threefry kernel launch on a card (``ops/rng_kernel.py``)."""
-    base = rng.fold_in(rng.frame_key(cfg.seed, frame, rng.EMIT), salt)
+    one threefry kernel launch on a card (``ops/rng_kernel.py``, which
+    takes the frame)."""
+    base = rng.FrameKey(cfg.seed, rng.EMIT).fold(salt)
     return [rng_kernel.u01(base, (total, 8)),
-            rng_kernel.unit_vectors(rng.fold_in(base, 1), total)]
+            rng_kernel.unit_vectors(base.fold(1), total)]
 
 
-def spawn_fields(cfg: EmitterSceneConfig, frame: int, accum: torch.Tensor,
+def spawn_fields(cfg: EmitterSceneConfig, frame, accum: torch.Tensor,
                  salt: int = 0, table: Optional[SpawnTable] = None
                  ) -> Tuple[SpawnRows, torch.Tensor]:
     """This frame's spawn rows and the updated fractional-rate accumulators
-    (one float per emitter), on ``accum``'s device.  ``salt`` decorrelates
+    (one float per emitter), on ``accum``'s device.  ``frame`` is a Python
+    int or a 0-dim int64 tensor on that device.  ``salt`` decorrelates
     parallel streams.  One ``(total, 8)`` uniform draw and one unit-vector
     draw cover every emitter's rows (:func:`spawn_draws`).  ``table`` is
     the scene's :class:`SpawnTable` (built here when not given)."""
@@ -131,7 +132,7 @@ def spawn_fields(cfg: EmitterSceneConfig, frame: int, accum: torch.Tensor,
                 accum)
     t = SpawnTable(cfg, dev) if table is None else table
 
-    u, dirs = rng_kernel.flat_fields(spawn_draws(cfg, frame, salt, t.total),
+    u, dirs = rng_kernel.flat_fields(spawn_draws(cfg, salt, t.total), frame,
                                      dev)
 
     # fractional-rate accumulators over the (E,) row, then a gather maps the
@@ -191,7 +192,7 @@ def step_core(state: ParticleState, spawn: SpawnRows,
         tag=write(state.tag, target, 0))
 
 
-def step(state: ParticleState, accum: torch.Tensor, frame: int,
+def step(state: ParticleState, accum: torch.Tensor, frame,
          cfg: EmitterSceneConfig):
     """Full frame: spawn-row generation, then :func:`step_core`."""
     spawn, accum = spawn_fields(cfg, frame, accum)

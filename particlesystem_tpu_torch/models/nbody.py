@@ -14,7 +14,12 @@ particle tag (``ops/neighbor.collision_okey``); free slots are allocated by
 ascending dead slot to ascending exploding parent under a per-frame budget;
 neighbor reads use the previous frame's state.  A frame never waits for the
 host: no ``nonzero``, no boolean-mask indexing, no ``.item()`` — the
-statistics stay on the device as 0-dim tensors.
+statistics stay on the device as 0-dim tensors.  The frame index is a
+Python int or a 0-dim int64 tensor on the state's device (JAX's traced
+``int32``): the draws, the child tags and everything else give the same
+bits either way, and a frame that takes it from the device can be
+captured in a CUDA graph and replayed frame after frame
+(``api.NBodySimulation``, :func:`step_into`).
 """
 
 from __future__ import annotations
@@ -58,9 +63,11 @@ class NBodyStats:
 
 def fill_draws(cfg: NBodyConfig, n: int) -> list:
     """:func:`init_fill`'s four draws of ``n`` particles (positions,
-    signs, ages, fertility ages), drawn in one threefry kernel launch on a
-    card (``ops/rng_kernel.py``)."""
-    kr, ks, ka, kf = rng.split(rng.frame_key(cfg.seed, 0, rng.FILL), 4)
+    signs, ages, fertility ages) at frame 0: ``split(frame_key(seed, 0,
+    FILL), 4)``, whose key ``i`` is ``fold_in(.., i)``; drawn in one
+    threefry kernel launch on a card (``ops/rng_kernel.py``)."""
+    fill = rng.FrameKey(cfg.seed, rng.FILL)
+    kr, ks, ka, kf = (fill.fold(i) for i in range(4))
     return [rng_kernel.u01(kr, (n, 3)), rng_kernel.u01(ks, (n, 3)),
             rng_kernel.uniform(ka, (n,), cfg.min_adult_age,
                                cfg.max_adult_age),
@@ -78,7 +85,8 @@ def init_fill(cfg: NBodyConfig, device, n: int | None = None
     n = cfg.n_fill if n is None else n
     if n > cfg.slots:
         raise ValueError(f"n_fill={n} exceeds capacity {cfg.slots}")
-    r, u_sign, age, life = rng_kernel.flat_fields(fill_draws(cfg, n), device)
+    r, u_sign, age, life = rng_kernel.flat_fields(fill_draws(cfg, n), 0,
+                                                  device)
     sign = torch.where(u_sign >= 0.5, 1.0, -1.0)
     s = zero_state(cfg.slots, device)
     s.pos[:n] = sign * r * cfg.grid.half_extent
@@ -90,10 +98,11 @@ def init_fill(cfg: NBodyConfig, device, n: int | None = None
     return s
 
 
-def frame_fields(cfg: NBodyConfig, frame: int, tags: torch.Tensor):
+def frame_fields(cfg: NBodyConfig, frame, tags: torch.Tensor):
     """Per-slot random fields keyed by each slot's particle tag: explosion
     unit velocity (N, 3) and child fertility age (N,); one threefry kernel
-    launch for CUDA tags (``ops/rng_kernel.py``)."""
+    launch for CUDA tags (``ops/rng_kernel.py``), the frame read on the
+    device."""
     return rng_kernel.nbody_fields(cfg.seed, frame, tags,
                                    cfg.min_fertility_age,
                                    cfg.max_fertility_age)
@@ -118,7 +127,7 @@ def _neighbor_pass(state: ParticleState, cell_list: torch.Tensor,
 def lifecycle_update(state: ParticleState, pos_w: torch.Tensor,
                      overflow: torch.Tensor, acc: torch.Tensor,
                      kill: torch.Tensor, touch: torch.Tensor,
-                     uvec: torch.Tensor, fert: torch.Tensor, frame: int,
+                     uvec: torch.Tensor, fert: torch.Tensor, frame,
                      cfg: NBodyConfig):
     """Lifecycle flags + clamped integration + explosion reproduction,
     given the neighbor-pass results.  Returns (new_state, counts dict)."""
@@ -199,7 +208,7 @@ def lifecycle_update(state: ParticleState, pos_w: torch.Tensor,
 
 
 def step_fields(state: ParticleState, uvec: torch.Tensor, fert: torch.Tensor,
-                frame: int, cfg: NBodyConfig, impl: str = "blocks",
+                frame, cfg: NBodyConfig, impl: str = "blocks",
                 list_width: int = 0) -> Tuple[ParticleState, NBodyStats]:
     """Deterministic step given the per-frame random fields ``uvec`` (N, 3)
     and ``fert`` (N,) (see :func:`frame_fields`); ``frame`` enters only
@@ -267,7 +276,22 @@ def compact_state(state: ParticleState) -> ParticleState:
     return state.map(lambda a: a[order])
 
 
-def step(state: ParticleState, frame: int, cfg: NBodyConfig,
+def _step_head(state: ParticleState, frame, cfg: NBodyConfig, impl: str,
+               active: int, list_width: int):
+    """(the rows the frame operates on, their next state, stats): the whole
+    state, or the prefix ``[0, active)`` with the alive rows beyond it
+    counted in ``n_tail_alive``."""
+    head = state
+    if active and active < state.slots:
+        head = state.map(lambda a: a[:active])
+    uvec, fert = frame_fields(cfg, frame, head.tag)
+    out, stats = step_fields(head, uvec, fert, frame, cfg, impl, list_width)
+    if head is not state:
+        stats.n_tail_alive = _count(state.alive[active:])
+    return head, out, stats
+
+
+def step(state: ParticleState, frame, cfg: NBodyConfig,
          impl: str = "blocks", active: int = 0, list_width: int = 0
          ) -> Tuple[ParticleState, NBodyStats]:
     """Full frame: per-frame random fields + physics.
@@ -285,16 +309,25 @@ def step(state: ParticleState, frame: int, cfg: NBodyConfig,
     dead headroom for a full spawn burst lie inside the prefix; then results
     are bit-identical to ``active=0``.  ``stats.n_tail_alive`` counts alive
     rows beyond the prefix, which were frozen this frame."""
-    if active and active < state.slots:
-        head = state.map(lambda a: a[:active])
-        uvec, fert = frame_fields(cfg, frame, head.tag)
-        out_head, stats = step_fields(head, uvec, fert, frame, cfg, impl,
-                                      list_width)
+    head, out, stats = _step_head(state, frame, cfg, impl, active,
+                                  list_width)
+    if head is not state:
         tail = state.map(lambda a: a[active:])
         out = ParticleState(**{
-            f: torch.cat([getattr(out_head, f), getattr(tail, f)])
+            f: torch.cat([getattr(out, f), getattr(tail, f)])
             for f in FIELDS})
-        stats.n_tail_alive = _count(tail.alive)
-        return out, stats
-    uvec, fert = frame_fields(cfg, frame, state.tag)
-    return step_fields(state, uvec, fert, frame, cfg, impl, list_width)
+    return out, stats
+
+
+def step_into(state: ParticleState, frame, cfg: NBodyConfig,
+              impl: str = "blocks", active: int = 0, list_width: int = 0
+              ) -> NBodyStats:
+    """:func:`step` with the next state written into ``state``'s own
+    tensors (the prefix's rows; the frozen tail stays where it is), bit for
+    bit what :func:`step` returns: the frame a CUDA graph captures, reading
+    and writing the same buffers every replay.  Returns the stats."""
+    head, out, stats = _step_head(state, frame, cfg, impl, active,
+                                  list_width)
+    for f in FIELDS:
+        getattr(head, f).copy_(getattr(out, f))
+    return stats

@@ -34,8 +34,12 @@ def rank_table(mask: torch.Tensor, e: int) -> torch.Tensor:
 
 def write_rows(base: torch.Tensor, tgt: torch.Tensor, rows) -> torch.Tensor:
     """Copy of ``base`` with ``rows`` written at slots ``tgt``; targets equal
-    to ``len(base)`` are dropped (they land on a scratch row)."""
+    to ``len(base)`` are dropped (they land on a scratch row).  A number
+    for ``rows`` is filled in on ``base``'s device (a CUDA graph cannot
+    capture its copy from the host)."""
     out = torch.cat([base, base[:1]])
+    if not isinstance(rows, torch.Tensor):
+        rows = torch.full((), rows, dtype=base.dtype, device=base.device)
     out[tgt] = rows
     return out[:-1]
 

@@ -226,9 +226,15 @@ def pack_spawn_rows(spawn) -> Fields:
             torch.zeros_like(spawn.life), spawn.life)
 
 
-def pack_spawn_rows_slim(spawn, frame: int, dt: float) -> Fields:
+def pack_spawn_rows_slim(spawn, frame, dt: float) -> Fields:
     """SpawnRows -> 7 slim per-field (S,) tensors; the lifetime becomes the
-    absolute death frame ``spawn_frame + life/dt`` (exact below 2^24)."""
-    death = float(frame) + spawn.life / as_f32(dt)
+    absolute death frame ``spawn_frame + life/dt`` (exact below 2^24).
+    ``frame`` a Python int or a 0-dim int64 tensor (rounded to float32,
+    as the JAX package's ``frame.astype(float32)``)."""
+    if isinstance(frame, torch.Tensor):
+        frame = frame.to(torch.float32)
+    else:
+        frame = float(frame)
+    death = frame + spawn.life / as_f32(dt)
     return (spawn.pos[:, 0], spawn.pos[:, 1], spawn.pos[:, 2],
             spawn.vel[:, 0], spawn.vel[:, 1], spawn.vel[:, 2], death)

@@ -82,6 +82,14 @@ class GridBins(NamedTuple):
     n_listed_dropped: torch.Tensor
 
 
+def count_keys(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(key, minlength=n)`` for keys in ``[0, n)``, as
+    int64: a scatter-add, which a CUDA graph can capture (``bincount`` on a
+    card reads the largest key back to the host to size its output)."""
+    out = torch.zeros((n,), dtype=torch.int64, device=key.device)
+    return out.index_add_(0, key, torch.ones_like(key, dtype=torch.int64))
+
+
 def build_bins(cell_of: torch.Tensor, alive: torch.Tensor, num_cells: int,
                cell_capacity: int, list_width: int = 0) -> GridBins:
     """Sort-based grid build.  ``cell_of`` must already be in
@@ -103,7 +111,7 @@ def build_bins(cell_of: torch.Tensor, alive: torch.Tensor, num_cells: int,
 
     # stable: rows of one cell keep ascending slot order
     sorted_key, order = torch.sort(key, stable=True)
-    counts_all = torch.bincount(key, minlength=num_cells + 1)
+    counts_all = count_keys(key, num_cells + 1)
     start = torch.cumsum(counts_all, dim=0) - counts_all
     rank_sorted = slot - start[sorted_key]
 
@@ -144,7 +152,7 @@ def chunk_occupancy(cell_of: torch.Tensor, alive: torch.Tensor,
     i2 = rem % g
     chunk = (i3 // cd) * cf * cf + (i1 // cd) * cf + (i2 // cd)
     chunk = torch.where(alive, chunk, cf ** 3)
-    return torch.bincount(chunk, minlength=cf ** 3 + 1)[: cf ** 3]
+    return count_keys(chunk, cf ** 3 + 1)[: cf ** 3]
 
 
 # 27-cell stencil offsets in (i1, i2, i3).  The reference enumerates the same

@@ -59,6 +59,7 @@ import torch
 
 from ..core.config import NBodyConfig
 from ..utils.cuda_build import launch
+from ..utils.frame_graph import count_launch
 from .neighbor import IMIN, as_f32, collision_okey
 
 B = 512        # block rows per kernel CTA
@@ -135,8 +136,7 @@ def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, tags,
 
     # out-of-band bands for invalid and kid rows (see module docstring)
     coord_ok = valid_s & (sage >= as_f32(cfg.kid_age))
-    base = torch.where(valid_s, torch.tensor(-10.0, dtype=f32, device=dev),
-                       torch.tensor(-4194304.0, dtype=f32, device=dev))
+    base = torch.where(valid_s, -10.0, -4194304.0).to(f32)
     bad_a = base - (2 * (iot % (1 << 19))).to(f32)
     bad_b = base - (2 * (iot % ((1 << 19) - 1))).to(f32)
     i3q = skey // plane_stride
@@ -331,7 +331,7 @@ def cluster_pair_cuda(cfg: NBodyConfig, snap: Snapshot, chunks, b: int,
     if err:
         raise RuntimeError(f"cluster-pair kernel launch failed: CUDA error "
                            f"{err}")
-    cluster_pair_cuda.launches += 1
+    count_launch(cluster_pair_cuda)
     return acc, gmax
 
 

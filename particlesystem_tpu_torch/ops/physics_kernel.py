@@ -25,6 +25,7 @@ import torch
 
 from ..core.config import EmitterSceneConfig
 from ..utils.cuda_build import launch
+from ..utils.frame_graph import count_launch
 from . import fused_step as fs
 
 MAX_PLANES = 8
@@ -120,7 +121,7 @@ def physics_step_cuda(fields, cfg: EmitterSceneConfig, window=None):
                  len(cfg.spheres), rows, valid, w, cursor)
     if err:
         raise RuntimeError(f"physics kernel launch failed: CUDA error {err}")
-    physics_step_cuda.launches += 1
+    count_launch(physics_step_cuda)
     return fields
 
 

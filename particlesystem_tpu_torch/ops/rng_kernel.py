@@ -21,8 +21,12 @@ launch the kernel, CPU ones take the plain version, built on
   (:func:`uniform`) or lattice unit vectors (:func:`unit_vectors`); the
   emitter's spawn rows and ``init_fill`` take theirs here.
 
-The frame-level keys are host ints (``core/rng.frame_key``) and travel to
-the kernel as launch arguments.  ``lo`` and ``hi - lo`` are rounded to
+The frame enters as a 0-dim int64 tensor on the card (a Python int is
+put there first): the kernel reads it from device memory and derives the
+frame's keys in each block, so a CUDA graph of a frame draws each replay's
+own randomness.  What does not change from frame to frame, the purpose
+keys and the words folded in after the frame (:class:`~..core.rng.FrameKey`),
+travels in the kernel's parameters.  ``lo`` and ``hi - lo`` are rounded to
 float32 on the host, as torch rounds a Python scalar before a float32
 tensor operation.
 """
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from ..core import rng
+from ..utils.frame_graph import count_launch
 from ..utils.cuda_build import launch
 
 UNIT, AFFINE, LATTICE = 0, 1, 2
@@ -46,11 +51,11 @@ MAX_COUNTERS = 1 << 32
 
 @dataclasses.dataclass(frozen=True)
 class Draw:
-    """One flat draw under a host key: ``shape`` floats (``UNIT``,
-    ``AFFINE``) or ``shape[0]`` lattice unit vectors of 3 floats
-    (``LATTICE``)."""
+    """One flat draw under ``key`` at the frame of the launch: ``shape``
+    floats (``UNIT``, ``AFFINE``) or ``shape[0]`` lattice unit vectors of 3
+    floats (``LATTICE``)."""
 
-    key: tuple
+    key: rng.FrameKey
     shape: tuple
     kind: int = UNIT
     lo: float = 0.0
@@ -70,18 +75,18 @@ class Draw:
         return (*self.shape, 3) if self.kind == LATTICE else self.shape
 
 
-def u01(key, shape) -> Draw:
-    """``rng.uniform01(key, shape)``."""
+def u01(key: rng.FrameKey, shape) -> Draw:
+    """``rng.uniform01(key.at(frame), shape)``."""
     return Draw(key, tuple(shape), UNIT)
 
 
-def uniform(key, shape, lo: float, hi: float) -> Draw:
-    """``rng.uniform(key, shape, lo, hi)``."""
+def uniform(key: rng.FrameKey, shape, lo: float, hi: float) -> Draw:
+    """``rng.uniform(key.at(frame), shape, lo, hi)``."""
     return Draw(key, tuple(shape), AFFINE, lo, hi)
 
 
-def unit_vectors(key, n: int) -> Draw:
-    """``rng.random_unit_vectors(key, n)``, (n, 3)."""
+def unit_vectors(key: rng.FrameKey, n: int) -> Draw:
+    """``rng.random_unit_vectors(key.at(frame), n)``, (n, 3)."""
     return Draw(key, (n,), LATTICE)
 
 
@@ -90,6 +95,20 @@ def _device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def frame_on(frame, device: torch.device) -> torch.Tensor:
+    """``frame`` as the kernel reads it: a 0-dim int64 tensor on
+    ``device``.  A Python int is filled in there (a fill kernel, no copy
+    from the host)."""
+    if isinstance(frame, torch.Tensor):
+        if (frame.dtype != torch.int64 or frame.dim() != 0
+                or frame.device != device):
+            raise ValueError(f"the frame must be a 0-dim int64 tensor on "
+                             f"{device}, got {frame.dtype} "
+                             f"{tuple(frame.shape)} on {frame.device}")
+        return frame
+    return torch.full((), int(frame), dtype=torch.int64, device=device)
 
 
 def _check_tags(tags: torch.Tensor):
@@ -105,6 +124,8 @@ def _check_draws(draws):
     for d in draws:
         if d.kind not in (UNIT, AFFINE, LATTICE):
             raise ValueError(f"unknown draw kind {d.kind}")
+        if not isinstance(d.key, rng.FrameKey):
+            raise ValueError(f"a draw's key is a FrameKey, got {d.key!r}")
         if d.kind == LATTICE and len(d.shape) != 1:
             raise ValueError("a lattice draw takes a shape (n,)")
         if d.counters >= MAX_COUNTERS:
@@ -114,9 +135,10 @@ def _check_draws(draws):
 
 # --- the n-body frame's per-tag fields ----------------------------------------
 
-def nbody_fields_plain(seed: int, frame: int, tags: torch.Tensor, lo: float,
+def nbody_fields_plain(seed: int, frame, tags: torch.Tensor, lo: float,
                        hi: float):
-    """Plain PyTorch version of the kernel: (uvec (T, 3), fert (T,))."""
+    """Plain PyTorch version of the kernel: (uvec (T, 3), fert (T,));
+    ``frame`` a Python int or a 0-dim int64 tensor, the same bits."""
     _check_tags(tags)
     uvec = rng.per_tag_unit_vectors(rng.frame_key(seed, frame, rng.UVEC),
                                     tags)
@@ -125,10 +147,11 @@ def nbody_fields_plain(seed: int, frame: int, tags: torch.Tensor, lo: float,
     return uvec, fert
 
 
-def nbody_fields_cuda(seed: int, frame: int, tags: torch.Tensor, lo: float,
+def nbody_fields_cuda(seed: int, frame, tags: torch.Tensor, lo: float,
                       hi: float):
-    """Launch ``ps_nbody_frame_fields`` on the current stream; counts its
-    launches in ``nbody_fields_cuda.launches``."""
+    """Launch ``ps_nbody_frame_fields`` on the current stream, the frame
+    read on the device (:func:`frame_on`); counts its launches in
+    ``nbody_fields_cuda.launches`` (``utils/frame_graph.count_launch``)."""
     _check_tags(tags)
     dev = tags.device
     if dev.type != "cuda":
@@ -139,21 +162,22 @@ def nbody_fields_cuda(seed: int, frame: int, tags: torch.Tensor, lo: float,
     fert = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return uvec, fert
-    ku = rng.frame_key(seed, frame, rng.UVEC)
-    kf = rng.frame_key(seed, frame, rng.FERT)
+    frame = frame_on(frame, dev)
     err = launch("ps_nbody_frame_fields", dev, tags.data_ptr(), n,
-                 uvec.data_ptr(), fert.data_ptr(), *ku, *kf,
+                 uvec.data_ptr(), fert.data_ptr(), frame.data_ptr(),
+                 *rng._purpose_key(seed, rng.UVEC),
+                 *rng._purpose_key(seed, rng.FERT),
                  float(np.float32(lo)), float(np.float32(hi - lo)))
     if err:
         raise RuntimeError(f"threefry kernel launch failed: CUDA error {err}")
-    nbody_fields_cuda.launches += 1
+    count_launch(nbody_fields_cuda)
     return uvec, fert
 
 
 nbody_fields_cuda.launches = 0
 
 
-def nbody_fields(seed: int, frame: int, tags: torch.Tensor, lo: float,
+def nbody_fields(seed: int, frame, tags: torch.Tensor, lo: float,
                  hi: float):
     """The n-body frame's random fields of ``tags``: the kernel for a CUDA
     tensor, the plain version for a CPU one."""
@@ -166,24 +190,27 @@ def nbody_fields(seed: int, frame: int, tags: torch.Tensor, lo: float,
 
 # --- flat draws -----------------------------------------------------------------
 
-def flat_fields_plain(draws, device) -> list:
-    """Plain PyTorch version of the kernel: one tensor a draw."""
+def flat_fields_plain(draws, frame, device) -> list:
+    """Plain PyTorch version of the kernel: one tensor a draw; ``frame`` a
+    Python int or a 0-dim int64 tensor, the same bits."""
     _check_draws(draws)
     out = []
     for d in draws:
+        k = d.key.at(frame)
         if d.kind == LATTICE:
-            out.append(rng.random_unit_vectors(d.key, d.shape[0], device))
+            out.append(rng.random_unit_vectors(k, d.shape[0], device))
         elif d.kind == AFFINE:
-            out.append(rng.uniform(d.key, d.shape, d.lo, d.hi, device))
+            out.append(rng.uniform(k, d.shape, d.lo, d.hi, device))
         else:
-            out.append(rng.uniform01(d.key, d.shape, device))
+            out.append(rng.uniform01(k, d.shape, device))
     return out
 
 
-def flat_fields_cuda(draws, device) -> list:
+def flat_fields_cuda(draws, frame, device) -> list:
     """Launch ``ps_flat_fields`` on the current stream for every draw at
-    once; returns one view a draw of one float32 buffer.  Counts its
-    launches in ``flat_fields_cuda.launches``."""
+    once, the frame read on the device (:func:`frame_on`); returns one view
+    a draw of one float32 buffer.  Counts its launches in
+    ``flat_fields_cuda.launches``."""
     _check_draws(draws)
     dev = _device(device)
     if dev.type != "cuda":
@@ -191,17 +218,24 @@ def flat_fields_cuda(draws, device) -> list:
     sizes = [math.prod(d.out_shape) for d in draws]
     buf = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
     if sum(sizes):
-        keys = np.asarray([d.key for d in draws], np.uint32)
+        frame = frame_on(frame, dev)
+        keys = np.asarray([d.key.purpose_key for d in draws], np.uint32)
+        n_words = np.asarray([len(d.key.words) for d in draws], np.int32)
+        words = np.asarray([d.key.words + (0,) * (rng.MAX_WORDS
+                                                  - len(d.key.words))
+                            for d in draws], np.int64) & rng.M32
+        words = words.astype(np.uint32)
         items = np.asarray([d.items for d in draws], np.int64)
         kinds = np.asarray([d.kind for d in draws], np.int32)
         affine = np.asarray([(d.lo, d.hi - d.lo) for d in draws], np.float32)
         err = launch("ps_flat_fields", dev, buf.data_ptr(), len(draws),
-                     keys.ctypes.data, items.ctypes.data, kinds.ctypes.data,
+                     frame.data_ptr(), keys.ctypes.data, n_words.ctypes.data,
+                     words.ctypes.data, items.ctypes.data, kinds.ctypes.data,
                      affine.ctypes.data)
         if err:
             raise RuntimeError(f"threefry kernel launch failed: CUDA error "
                                f"{err}")
-        flat_fields_cuda.launches += 1
+        count_launch(flat_fields_cuda)
     return [part.view(d.out_shape)
             for part, d in zip(torch.split(buf, sizes), draws)]
 
@@ -209,12 +243,12 @@ def flat_fields_cuda(draws, device) -> list:
 flat_fields_cuda.launches = 0
 
 
-def flat_fields(draws, device) -> list:
-    """The draws on ``device``, one tensor a draw: the kernel for a CUDA
-    device, the plain version for the CPU."""
+def flat_fields(draws, frame, device) -> list:
+    """The draws at ``frame`` on ``device``, one tensor a draw: the kernel
+    for a CUDA device, the plain version for the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda":
-        return flat_fields_cuda(draws, dev)
+        return flat_fields_cuda(draws, frame, dev)
     if dev.type == "cpu":
-        return flat_fields_plain(draws, dev)
+        return flat_fields_plain(draws, frame, dev)
     raise ValueError(f"no threefry kernel for device {dev}")

@@ -5,8 +5,23 @@ spawn-row generation (``models/emitter.spawn_fields``), the physics kernel
 (``ops/physics_kernel.physics_step``: CUDA on a card, the plain version on
 the CPU), and the allocator's bookkeeping and spawn write, with no host
 synchronisation: ``cursor``, ``n_free``, ``free_list`` and ``accum`` stay
-device tensors, and only the frame index, which is deterministic, lives on
-the host.
+device tensors, and the frame index lives on the host (``EngineState.frame``)
+and, for the frame's draws, on the device.
+
+:meth:`PackedEngine.step` and :meth:`~PackedEngine.step_many` run the frame
+as a CUDA graph (``utils/frame_graph.FrameGraphs``), the counterpart of the
+JAX engine's jitted frame and its ``fori_loop``: the engine keeps one
+static state, whose tensors the graph reads and writes, and the frame
+index on the device, which the graph increments; each frame is one
+replay.  The first state stepped lends its own tensors to that role; a
+state from elsewhere (``init()``, ``checkpoint.load``,
+:func:`engine_state_from_numpy`) is copied into them once.  ``alloc="exact"``
+refreshes its free list every ``refresh_interval`` frames, a branch taken
+on the host: it has two graphs, with and without the refresh, and the host
+picks one a frame.  On the CPU the same frame function runs eagerly on the
+same static state.  :meth:`PackedEngine._frame` is the frame itself,
+eager and functional: the reference the graphs are held to, and the
+sharded engine's frame.
 
 State is per-field float32 tensors: ``packed8`` (x, y, z, vx, vy, vz, age,
 life; dead rows frozen) or ``slim`` (x, y, z, vx, vy, vz, death_frame;
@@ -28,8 +43,8 @@ Allocation policies (``alloc=``):
 
 Every (alloc, layout) pair runs through the kernel on the card, except
 that ``slim`` needs a ring-type allocator.  :meth:`PackedEngine.step`
-consumes its input state: on a card the kernel updates the fields in
-place (JAX's engine donates them).
+consumes its input state (JAX's engine donates it) and returns the
+engine's static state, which the next step overwrites.
 """
 
 from __future__ import annotations
@@ -46,6 +61,7 @@ from ..ops import fused_step as fs
 from ..ops.neighbor import as_f32
 from ..ops.physics_kernel import physics_step
 from ..utils.device import resolve_device
+from ..utils.frame_graph import FrameGraphs
 
 
 def _round_up(x: int, m: int) -> int:
@@ -74,6 +90,10 @@ class EngineState:
         """(n_fields, ...) stacked copy of the fields, for readback and
         inspection."""
         return torch.stack(self.fields)
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        return (*self.fields, self.accum, self.free_list, self.cursor,
+                self.n_free)
 
 
 class PackedEngine:
@@ -112,6 +132,11 @@ class PackedEngine:
         self.field_shape = ((self.b_rows, self.spawn_width)
                             if alloc == "select" else (self.total,))
         self._table = em.SpawnTable(cfg, self.device)
+        # the frame loop: the static state the graphs read and write, its
+        # frame on the device, one graph a refresh branch
+        self.graphs = FrameGraphs(self.device)
+        self._static: Optional[EngineState] = None
+        self._frame_t: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------
     def init(self, fields: Optional[Sequence] = None) -> EngineState:
@@ -170,12 +195,19 @@ class PackedEngine:
             valid = torch.cat([valid, valid.new_zeros((pad,))])
         return rows, valid
 
-    def _frame(self, s: EngineState, salt: int = 0) -> EngineState:
+    def _frame(self, s: EngineState, salt: int = 0, frame=None,
+               refresh: Optional[bool] = None) -> EngineState:
+        """One frame from ``s``, eager; consumes ``s`` (its fields may be
+        updated in place).  ``frame`` is ``s.frame`` on the device for the
+        draws (a 0-dim int64 tensor; ``s.frame`` itself when None);
+        ``refresh`` says whether ``alloc="exact"`` refreshes its free list
+        (``s.frame % refresh_interval == 0`` when None)."""
         cfg = self.cfg
-        spawn, accum = em.spawn_fields(cfg, s.frame, s.accum, salt,
+        fr = s.frame if frame is None else frame
+        spawn, accum = em.spawn_fields(cfg, fr, s.accum, salt,
                                        table=self._table)
         if self.layout == "slim":
-            rows = fs.pack_spawn_rows_slim(spawn, s.frame, cfg.dt)
+            rows = fs.pack_spawn_rows_slim(spawn, fr, cfg.dt)
         else:
             rows = fs.pack_spawn_rows(spawn)
         free_list, n_free, cursor = s.free_list, s.n_free, s.cursor
@@ -195,7 +227,9 @@ class PackedEngine:
                                            cursor, cfg.slots)
         else:
             fields = physics_step(s.fields, cfg)
-            if s.frame % self.refresh_interval == 0:
+            if refresh is None:
+                refresh = s.frame % self.refresh_interval == 0
+            if refresh:
                 free_list, n_free = fs.refresh_free_list(
                     fields, self.free_list_size)
                 cursor = torch.zeros_like(cursor)
@@ -207,15 +241,61 @@ class PackedEngine:
                            frame=s.frame + 1)
 
     # ------------------------------------------------------------------
+    def _enter(self, s: EngineState) -> EngineState:
+        """The static state, holding ``s``: ``s`` itself when it is the
+        static state (the engine's own output); the first state's tensors
+        become the static ones; any other state is copied in."""
+        st = self._static
+        if s is st:
+            return st
+        if st is None:
+            self._static = st = dataclasses.replace(s)
+            self._frame_t = torch.full((), s.frame, dtype=torch.int64,
+                                       device=self.device)
+            return st
+        pairs = list(zip(st.tensors(), s.tensors(), strict=True))
+        for dst, src in pairs:
+            if dst.shape != src.shape:
+                raise ValueError(f"a state of shape {tuple(src.shape)} "
+                                 f"where this engine's has "
+                                 f"{tuple(dst.shape)}")
+        for dst, src in pairs:
+            dst.copy_(src)
+        st.frame = s.frame
+        self._frame_t.fill_(s.frame)
+        return st
+
+    def _static_frame(self, refresh: bool) -> None:
+        """The frame the graphs capture: the static state to the next, in
+        place, and the device frame one on."""
+        st = self._static
+        out = self._frame(st, frame=self._frame_t, refresh=refresh)
+        for dst, src in zip(st.tensors(), out.tensors(), strict=True):
+            if src.data_ptr() != dst.data_ptr():
+                dst.copy_(src)
+        self._frame_t.add_(1)
+
+    def _refreshes(self, frame: int) -> bool:
+        """Whether ``frame`` refreshes ``alloc="exact"``'s free list: a
+        branch taken on the host, so the key of the frame's graph (every
+        other allocator has one graph, False)."""
+        return (self.alloc == "exact"
+                and frame % self.refresh_interval == 0)
+
     def step(self, s: EngineState) -> EngineState:
-        """One frame; consumes ``s`` (its fields may be updated in place)."""
-        return self._frame(s)
+        """One frame, one graph replay on a card; consumes ``s`` and
+        returns the engine's static state."""
+        return self.step_many(s, 1)
 
     def step_many(self, s: EngineState, k: int) -> EngineState:
-        """``k`` frames queued back to back, with no host synchronisation."""
+        """``k`` frames queued back to back, with no host synchronisation:
+        ``k`` graph replays on a card."""
+        st = self._enter(s)
         for _ in range(k):
-            s = self._frame(s)
-        return s
+            refresh = self._refreshes(st.frame)
+            self.graphs.step(refresh, lambda: self._static_frame(refresh))
+            st.frame += 1
+        return st
 
     def flat_fields(self, s: EngineState) -> Tuple[torch.Tensor, ...]:
         """Per-field ``(slots,)`` views of the live region: drops the ring

@@ -116,11 +116,11 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [_P, _P, ctypes.c_longlong, _P]
     fn.restype = ctypes.c_int
     fn = lib.ps_nbody_frame_fields
-    fn.argtypes = [_P, ctypes.c_longlong, _P, _P] + [ctypes.c_uint32] * 4 + [
-        ctypes.c_float, ctypes.c_float, _P]
+    fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _P] + [
+        ctypes.c_uint32] * 4 + [ctypes.c_float, ctypes.c_float, _P]
     fn.restype = ctypes.c_int
     fn = lib.ps_flat_fields
-    fn.argtypes = [_P, ctypes.c_int, _P, _P, _P, _P, _P]
+    fn.argtypes = [_P, ctypes.c_int] + [_P] * 8
     fn.restype = ctypes.c_int
     return lib
 

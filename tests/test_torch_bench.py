@@ -82,16 +82,17 @@ def test_nbody_stage_guards_hold(line):
 
 
 def _tripping(monkeypatch, field, from_frame=bench.WARM_FRAMES):
-    inner = api.nbody.step
+    # the simulation's frame loop steps its state in place (step_into)
+    inner = api.nbody.step_into
 
-    def step(state, frame, *a, **k):
-        out, stats = inner(state, frame, *a, **k)
+    def step_into(state, frame, *a, **k):
+        stats = inner(state, frame, *a, **k)
         if frame >= from_frame:
             stats = dataclasses.replace(
                 stats, **{field: torch.ones_like(getattr(stats, field))})
-        return out, stats
+        return stats
 
-    monkeypatch.setattr(api.nbody, "step", step)
+    monkeypatch.setattr(api.nbody, "step_into", step_into)
 
 
 def test_dropped_chunk_fails_the_stage(monkeypatch):

@@ -53,10 +53,10 @@ def test_spawn_draws_match_jax(salt):
     seed, frame = 5, 17
     jbase = jax.random.fold_in(jrng.frame_key(seed, jnp.int32(frame),
                                               jrng.EMIT), salt)
-    tbase = trng.fold_in(trng.frame_key(seed, frame, trng.EMIT), salt)
+    tbase = trng.FrameKey(seed, trng.EMIT).fold(salt)
     u, dirs = rk.flat_fields([rk.u01(tbase, (BENCH_TOTAL, 8)),
-                              rk.unit_vectors(trng.fold_in(tbase, 1),
-                                              BENCH_TOTAL)], "cpu")
+                              rk.unit_vectors(tbase.fold(1), BENCH_TOTAL)],
+                             frame, "cpu")
     ju = jax.random.uniform(jbase, (BENCH_TOTAL, 8), jnp.float32)
     jd = jrng.random_unit_vectors(jax.random.fold_in(jbase, 1), BENCH_TOTAL)
     np.testing.assert_array_equal(bits(u.numpy()), bits(ju))
@@ -67,9 +67,9 @@ def test_affine_draw_matches_jax():
     cfg = NBodyConfig()
     jk = jax.random.split(jrng.frame_key(cfg.seed, jnp.int32(0),
                                          jrng.FILL), 4)[2]
-    tk = trng.split(trng.frame_key(cfg.seed, 0, trng.FILL), 4)[2]
+    tk = trng.FrameKey(cfg.seed, trng.FILL).fold(2)
     (age,) = rk.flat_fields([rk.uniform(tk, (777,), cfg.min_adult_age,
-                                        cfg.max_adult_age)], "cpu")
+                                        cfg.max_adult_age)], 0, "cpu")
     ja = jrng.uniform(jk, (777,), cfg.min_adult_age, cfg.max_adult_age)
     np.testing.assert_array_equal(bits(age.numpy()), bits(ja))
 
@@ -82,27 +82,35 @@ def test_cpu_takes_the_plain_version():
     want = rk.nbody_fields_plain(1, 2, tags, 0.5, 4.0)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    draws = [rk.u01((1, 2), (5, 8)), rk.unit_vectors((3, 4), 5),
-             rk.uniform((5, 6), (7,), 0.25, 2.0)]
-    for a, b in zip(rk.flat_fields(draws, "cpu"),
-                    rk.flat_fields_plain(draws, "cpu")):
+    draws = [rk.u01(trng.FrameKey(1, 2), (5, 8)),
+             rk.unit_vectors(trng.FrameKey(3, 4, (1,)), 5),
+             rk.uniform(trng.FrameKey(5, 6, (7, 8)), (7,), 0.25, 2.0)]
+    for a, b in zip(rk.flat_fields(draws, 9, "cpu"),
+                    rk.flat_fields_plain(draws, 9, "cpu")):
         assert torch.equal(a, b)
     assert rk.nbody_fields_cuda.launches == 0
     assert rk.flat_fields_cuda.launches == 0
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
+    key = trng.FrameKey(1, 2)
     with pytest.raises(ValueError, match="no threefry kernel"):
         rk.nbody_fields(1, 2, torch.zeros(4, dtype=torch.int64,
                                           device="meta"), 0.0, 1.0)
     with pytest.raises(ValueError, match="no threefry kernel"):
-        rk.flat_fields([rk.u01((1, 2), (4,))], "meta")
+        rk.flat_fields([rk.u01(key, (4,))], 0, "meta")
     with pytest.raises(ValueError, match="int64"):
         rk.nbody_fields(1, 2, torch.zeros(4, dtype=torch.int32), 0.0, 1.0)
     with pytest.raises(ValueError, match="2\\^32"):
-        rk.flat_fields_plain([rk.unit_vectors((1, 2), 1 << 31)], "cpu")
+        rk.flat_fields_plain([rk.unit_vectors(key, 1 << 31)], 0, "cpu")
     with pytest.raises(ValueError, match="draws"):
-        rk.flat_fields_plain([rk.u01((1, 2), (4,))] * 5, "cpu")
+        rk.flat_fields_plain([rk.u01(key, (4,))] * 5, 0, "cpu")
+    with pytest.raises(ValueError, match="FrameKey"):
+        rk.flat_fields_plain([rk.u01((1, 2), (4,))], 0, "cpu")
+    with pytest.raises(ValueError, match="at most 2 words"):
+        key.fold(1).fold(2).fold(3)
+    with pytest.raises(ValueError, match="0-dim int64"):
+        rk.frame_on(torch.zeros((1,), dtype=torch.int64), torch.device("cpu"))
 
 
 @pytest.mark.cuda
@@ -122,10 +130,13 @@ def test_cuda_kernel_matches_plain():
         for a, b in zip(got, want):
             assert torch.equal(a.cpu().view(torch.int32),
                                b.view(torch.int32))
-    draws = [rk.u01((9, 10), (BENCH_TOTAL, 8)),
-             rk.unit_vectors((11, 12), BENCH_TOTAL),
-             rk.uniform((13, 14), (333,), cfg.min_adult_age,
-                        cfg.max_adult_age)]
-    for a, b in zip(rk.flat_fields_cuda(draws, "cuda"),
-                    rk.flat_fields_plain(draws, "cpu")):
-        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    draws = [rk.u01(trng.FrameKey(9, 10), (BENCH_TOTAL, 8)),
+             rk.unit_vectors(trng.FrameKey(11, 12, (3, 1)), BENCH_TOTAL),
+             rk.uniform(trng.FrameKey(13, 14, (2,)), (333,),
+                        cfg.min_adult_age, cfg.max_adult_age)]
+    for frame in (0, 54321):
+        frame_t = torch.tensor(frame, dtype=torch.int64, device="cuda")
+        for a, b in zip(rk.flat_fields_cuda(draws, frame_t, "cuda"),
+                        rk.flat_fields_plain(draws, frame, "cpu")):
+            assert torch.equal(a.cpu().view(torch.int32),
+                               b.view(torch.int32))
