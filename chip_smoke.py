@@ -146,7 +146,23 @@ Phases (any failure raises and exits non-zero):
     eager frames + replays = frames, each kernel
     recorded once a graph; ms a frame of both loops, the host's
     microseconds a replay, the graph's nodes, kernels a frame and the
-    device's busy share from a trace of replays.
+    device's busy share from a trace of replays; then the same 8 frames
+    from the same state traced replayed and eagerly, each kernel's sums
+    side by side (each trace after one frame it leaves out, and taken
+    again unless it holds each hand-written kernel once a frame);
+15. the n-body frame's kernels A-E (``csrc/nbody_frame.cu``, through
+    ``ops/frame_kernels.py``): each against its plain version on the same
+    inputs, bit for bit (every field, mask, tag, flag, tile count and
+    statistic; D and E into a fresh state and in place), at full width
+    (2,097,152 slots), on phase 4's plateau prefix, on the 10M stage's
+    20,971,520 rows on 32^3 and on the edge states of
+    ``tools/frame_states.py``, B and C also on a non-cubic grid with ids
+    and -1 padding; 20 frames of ``nbody.step`` against 20 frames
+    composed of the plain versions at full width, bit for bit; each
+    kernel timed through its wrapper, in a CUDA graph and in a graph with
+    the L2 cleared before each launch, beside its bound (bytes; A's and
+    E's counted on the run's data) and, for B, ``torch.searchsorted``; a
+    trace of the 10M stage's replayed frames, its largest kernels.
 
 The single-device frame loops (``NBodySimulation.run``,
 ``PackedEngine.step``/``step_many``, and ``ParticleSystem``, ``bench`` and
@@ -156,7 +172,9 @@ through the threefry kernel: its launches are read beside the other
 kernels' in phases 4, 6, 7, 9, 10, 11, 12 and 14 (once a frame, once an
 ``init_fill``; a replay counts the launches its graph recorded), and
 phase 6 also holds the spawn draws on the card against those on the
-CPU.
+CPU.  Every single-device n-body frame on the card runs A-E once (phases
+4, 9, 12 and 14 read their launches); ``prepare``, the decomposed step's
+included, runs B and C.
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -166,6 +184,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -195,6 +214,13 @@ TRAJ_TOL = 1e-4                    # tests/test_pallas_step.py:94
 # 80GB HBM3, 700 W)
 NBODY_KERNELS_BEFORE = 1179
 ENGINE_KERNELS_BEFORE = 415.8
+# kernels and copies a frame of the n-body in a trace of replays, and in
+# an eager frame's trace, before the frame kernels A-E (the same card)
+NBODY_REPLAY_KERNELS_BEFORE = 469.9
+NBODY_EAGER_KERNELS_BEFORE = 462
+#: the n-body frame's kernels A-E (csrc/nbody_frame.cu), in frame order
+FRAME_KERNELS = ("nbody_cells", "cell_starts", "block_prepare",
+                 "nbody_lifecycle", "nbody_spawn")
 
 
 def card_line() -> str:
@@ -240,6 +266,7 @@ def roofline_ms(n_bytes: float, flops: float):
 
 def _wrappers():
     """{kernel name: the wrapper that counts its launches}."""
+    from particlesystem_tpu_torch.ops import frame_kernels as fk
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
     from particlesystem_tpu_torch.ops import physics_kernel as pk
     from particlesystem_tpu_torch.ops import rng_kernel as rk
@@ -249,12 +276,38 @@ def _wrappers():
                 probe_alu_ops=probe_alu_ops.probe_layers_cuda,
                 probe_affine=probe_two_shapes.probe_affine_cuda,
                 threefry_nbody=rk.nbody_fields_cuda,
-                threefry_flat=rk.flat_fields_cuda)
+                threefry_flat=rk.flat_fields_cuda,
+                nbody_cells=fk.nbody_cells_cuda,
+                cell_starts=fk.cell_starts_cuda,
+                block_prepare=fk.block_prepare_cuda,
+                nbody_lifecycle=fk.nbody_lifecycle_cuda,
+                nbody_spawn=fk.nbody_spawn_cuda)
 
 
 def reset_launches():
     for wrapper in _wrappers().values():
         wrapper.launches = 0
+
+
+def nbody_frames(frames: int, **others) -> dict:
+    """The launches of ``frames`` single-device blocks frames: the pair
+    kernel, the threefry kernel and A-E once a frame; ``others`` added."""
+    out = dict(cluster_pair=frames, threefry_nbody=frames,
+               **{k: frames for k in FRAME_KERNELS})
+    for k, v in others.items():
+        out[k] = out.get(k, 0) + v
+    return out
+
+
+@contextlib.contextmanager
+def counts_kept():
+    """Launches made inside (a comparison's) are taken off the counts."""
+    kept = {name: w.launches for name, w in _wrappers().items()}
+    try:
+        yield
+    finally:
+        for name, w in _wrappers().items():
+            w.launches = kept[name]
 
 
 def launches(**expected):
@@ -543,9 +596,9 @@ def phase_main_path(dev):
     sim.run(MAIN_ITERS, verbose=True)
     end.record()
     torch.cuda.synchronize()
-    # the threefry kernel: once a frame, and once for init_fill
-    counts = launches(cluster_pair=2 * MAIN_ITERS,
-                      threefry_nbody=2 * MAIN_ITERS, threefry_flat=1)
+    # the pair kernel, the threefry kernel and A-E: once a frame (the
+    # threefry kernel once more for init_fill)
+    counts = launches(**nbody_frames(2 * MAIN_ITERS, threefry_flat=1))
     n_launch = counts["cluster_pair"]
     ms_frame = start.elapsed_time(end) / MAIN_ITERS
     peak = torch.cuda.max_memory_allocated()
@@ -567,8 +620,9 @@ def phase_main_path(dev):
           f"{active_second or cfg.slots} of {cfg.slots} slots; alive "
           f"{n_alive}; kernel launches {n_launch} (pair), "
           f"{counts['threefry_nbody']} + {counts['threefry_flat']} "
-          f"(threefry: frames, init_fill); peak memory "
-          f"{peak} bytes ({peak / 2**30:.3f} GiB)")
+          f"(threefry: frames, init_fill), "
+          + ", ".join(f"{counts[k]} ({k})" for k in FRAME_KERNELS)
+          + f"; peak memory {peak} bytes ({peak / 2**30:.3f} GiB)")
 
     eager_kernels = profile_nbody_frame(sim)
 
@@ -589,42 +643,36 @@ def phase_main_path(dev):
                      err=max(plateau["err"], adult["err"]),
                      rng_launches=counts["threefry_nbody"]
                      + counts["threefry_flat"],
-                     plateau_tags=st.tag[:rows].clone())
+                     frame_launches={k: counts[k] for k in FRAME_KERNELS},
+                     plateau_tags=st.tag[:rows].clone(),
+                     plateau_state=st.map(lambda a: a[:rows].clone()),
+                     plateau_frame=sim.frame)
 
 
 def profile_nbody_frame(sim, top: int = 4):
     """One frame from ``sim``'s state (not kept) under torch.profiler: the
     device's time beside the frame's, and the kernels that take most of it
-    (the tracer can miss events, so device time is a lower bound)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    (a trace that holds each of the frame's own kernels once)."""
     from particlesystem_tpu_torch.models import nbody
 
     step = lambda: nbody.step(sim.state, sim.frame, sim.cfg, "blocks",
                               sim._active)
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    device_ms = sum(us for _, us in by_name.values()) / 1e3
+    trace = trace_frames(step, 1, expect=NBODY_FRAME_FUNCTIONS)
+    by_name, wall_ms = trace["sums"], trace["wall_ms"]
+    device_ms = trace["device_ms"]
     largest = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     print(f"phase 4: frame {sim.frame} under torch.profiler: {wall_ms:.3f} ms "
           f"on the host's clock, {device_ms:.3f} ms of device time "
           f"({device_ms / wall_ms:.1%}) in "
           f"{sum(n for n, _ in by_name.values())} kernels and copies "
-          f"({NBODY_KERNELS_BEFORE:,} before the threefry kernel); "
+          f"({NBODY_EAGER_KERNELS_BEFORE} before the frame kernels, "
+          f"{NBODY_KERNELS_BEFORE:,} before the threefry kernel); "
           f"largest: " + "; ".join(
               f"{name[:48]} x{n} {us / 1e3:.3f} ms"
               for name, (n, us) in largest))
+    frame_kernels = frame_kernel_times(by_name, 1)
+    print("phase 4: the frame kernels in that trace: " + "; ".join(
+        f"{k} x{n} {us / 1e3:.4f} ms" for k, (n, us) in frame_kernels.items()))
     pair = [us for name, (_, us) in by_name.items() if "cluster_pair" in name]
     assert pair, "the trace holds no cluster-pair kernel"
     rng = [(n, us) for name, (n, us) in by_name.items()
@@ -638,6 +686,46 @@ def profile_nbody_frame(sim, top: int = 4):
     print(f"phase 4: the cluster-pair kernel in that trace: "
           f"{sum(pair) / 1e3:.4f} ms")
     return sum(n for n, _ in by_name.values())
+
+
+def kernel_sums(events) -> dict:
+    """{name: (count, microseconds)} of a trace's device events."""
+    by_name = {}
+    for e in events:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return by_name
+
+
+#: the kernel functions of csrc/nbody_frame.cu, as a trace names them
+FRAME_KERNEL_FUNCTIONS = ("nbody_cells", "cell_starts", "block_prepare",
+                          "nbody_lifecycle", "spawn_scan", "spawn_rank",
+                          "spawn_write")
+#: the hand-written kernels an n-body frame launches once each
+NBODY_FRAME_FUNCTIONS = FRAME_KERNEL_FUNCTIONS + ("cluster_pair_kernel",
+                                                  "nbody_frame_fields")
+
+
+def _launches_of(by_name, k: str) -> list:
+    """(count, microseconds) of each name of a kernel function ``k`` (a
+    template's instances included) in a trace's sums."""
+    pattern = re.compile(rf"(^|\W){k}([(<]|$)")
+    return [(n, us) for name, (n, us) in by_name.items()
+            if pattern.search(name)]
+
+
+def frame_kernel_times(by_name, frames: int) -> dict:
+    """{kernel function of csrc/nbody_frame.cu: (launches, microseconds)}
+    in the sums of a trace of ``frames`` frames, each launched once a
+    frame."""
+    out = {}
+    for k in FRAME_KERNEL_FUNCTIONS:
+        hits = _launches_of(by_name, k)
+        n = sum(h[0] for h in hits)
+        assert n == frames, \
+            f"the trace holds {n} launches of {k}, expected {frames}"
+        out[k] = (n, sum(h[1] for h in hits))
+    return out
 
 
 def time_pair_state(name, cfg, snap, chunks, n_alive, dev):
@@ -1340,14 +1428,14 @@ def phase_dense_vs_blocks(sim):
     width = sim._pick_width(int(sim.last_stats.max_cell_occupancy))
     reset_launches()
     blocks, bst = nbody.step(sim.state, frame, cfg, "blocks", active)
-    launches(cluster_pair=1, threefry_nbody=1)
+    launches(**nbody_frames(1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dense_step = lambda: nbody.step(sim.state, frame, cfg, "dense", active,
                                     width)
     dense, dst = dense_step()
-    # the dense pass launches no pair kernel
-    launches(cluster_pair=1, threefry_nbody=2)
+    # the dense pass launches no pair kernel and none of A-E
+    launches(**nbody_frames(1, threefry_nbody=1))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     # as in the JAX package, the blocks pass counts a chunk's rows before
@@ -1633,56 +1721,51 @@ def listed_partners(snap, chunks, b, blocks):
 def pair_checks(module, at, c_local=None, subset=None):
     """Hold the pair kernel against its plain version on the inputs a
     path gives it: the ``at``-th calls (0 the first; ``LAST`` the last) of
-    this process's ``module.neighbor_pass_blocks`` (``models.nbody`` for
-    the single-device step; ``parallel.nbody_sharded`` for the decomposed
-    one, which the slab, the pencil and the brick all call, over a
-    halo-extended grid with the halo rows from other ranks, global ids and
-    -1-id padding rows).  Only calls that run a pass count: a call made
+    a pass in this process.  ``module`` names the path:
+    ``parallel.nbody_sharded`` for the decomposed step, which the slab,
+    the pencil and the brick all call, over a halo-extended grid with the
+    halo rows from other ranks, global ids and -1-id padding rows (its
+    ``neighbor_pass_blocks`` is wrapped, and the check builds the pass's
+    snapshot and chunk table with ``prepare``, kernels B and C on a card);
+    ``ops.neighbor_blocks`` for the single-device frame (its
+    ``kernel_call`` is wrapped, which ``models/nbody.blocks_frame`` calls
+    on the snapshot and chunk table that B and C built: the check takes
+    those very inputs).  Only calls that run a pass count: a call made
     while a frame graph is captured is not a pass (the graph's replays
     are, and run no Python), so the single-device loop's passes seen here
     are each key's first, eager frame; ``LAST`` keeps a copy of the
-    latest pass's inputs and checks it when the block ends.  Builds
-    the pass's snapshot and chunk table with ``prepare``, checks the ids
-    unique among the valid rows (the kernel's precondition) and runs
+    latest pass's inputs and checks it when the block ends.  Checks the
+    ids unique among the valid rows (the kernel's precondition) and runs
     :func:`compare_kernel` on the whole pass, or on ``subset`` evenly
     spaced live blocks (the first and the last among them); on the
     single-device pass it also checks that the chunk table lists every
     stencil partner of those blocks' rows once (:func:`listed_partners`
-    against :func:`pair_work`'s histogram).  The launches of the
-    comparison are taken off the kernel's count.  On the CPU, where there
-    is no kernel, only the inputs are recorded.  ``c_local`` is the rank's
-    own rows (the rest are halo).  Yields the list of records."""
+    against :func:`pair_work`'s histogram).  The launches of the check
+    are taken off the counts.  On the CPU, where there is no kernel, only
+    the inputs are recorded.  ``c_local`` is the rank's own rows (the rest
+    are halo).  Yields the list of records."""
     import torch
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
-    inner = module.neighbor_pass_blocks
+    single = module is nbk
+    hook = "kernel_call" if single else "neighbor_pass_blocks"
+    inner = getattr(module, hook)
     calls, records, latest = [0], [], []
 
-    def check(call, pos0, age0, w0, cell, alive, cfg, tags, dims, ids):
-        n = pos0.shape[0]
-        if ids is not None:
-            assert torch.unique(ids[alive]).numel() == \
-                int(alive.sum()), \
-                "the pass's ids are not unique among its valid rows"
-        snap, chunks, *_ = nbk.prepare(pos0, age0, w0, cell, alive, cfg,
-                                       tags, dims=dims, ids=ids)
-        local = n if c_local is None else c_local
-        rec = dict(call=call, dims=tuple(dims or (cfg.grid.grid_dim,)
-                                             * 3), rows=n,
-                   halo=int(alive[local:].sum()),
-                   pad=0 if ids is None else int((ids == -1).sum()),
+    def compare(call, cfg, snap, chunks, dims, n_valid, halo, pad):
+        rec = dict(call=call, dims=tuple(dims or (cfg.grid.grid_dim,) * 3),
+                   rows=snap.f.shape[1], halo=halo, pad=pad,
                    in_band=int((snap.f[3] >= 0).sum()), err=None,
                    partners=None)
-        if pos0.device.type == "cuda":
+        if snap.f.device.type == "cuda":
             blocks = None
             if subset:
-                live = max(1, -(-int(alive.sum()) // nbk.B))
+                live = max(1, -(-n_valid // nbk.B))
                 blocks = torch.linspace(
                     0, live - 1, subset,
-                    device=pos0.device).round().to(torch.int32)
-            count = nbk.cluster_pair_cuda.launches
-            rec["err"] = compare_kernel(cfg, snap, chunks, nbk.B, nbk.CH,
-                                        blocks)
-            nbk.cluster_pair_cuda.launches = count
+                    device=snap.f.device).round().to(torch.int32)
+            with counts_kept():
+                rec["err"] = compare_kernel(cfg, snap, chunks, nbk.B, nbk.CH,
+                                            blocks)
             if dims is None and blocks is not None:
                 got = listed_partners(snap, chunks, nbk.B, blocks)
                 want = pair_work(cfg, snap, chunks, nbk.B, blocks)[1]
@@ -1693,26 +1776,59 @@ def pair_checks(module, at, c_local=None, subset=None):
                 rec["partners"] = got
         records.append(rec)
 
-    def checked(pos0, age0, w0, cell, alive, cfg, tags, dims=None, ids=None):
-        args = (pos0, age0, w0, cell, alive, cfg, tags, dims, ids)
-        if not (pos0.is_cuda and torch.cuda.is_current_stream_capturing()):
+    def check(call, *args):
+        if single:
+            cfg, snap, chunks = args
+            # valid rows: in band or in the kid band (overflow and dead
+            # rows lie in the dead band, below -2^22)
+            valid = snap.f[3] > -(1 << 21)
+            assert torch.unique(snap.i[0][valid]).numel() == \
+                int(valid.sum()), "the frame's ids are not unique"
+            compare(call, cfg, snap, chunks, None, int(valid.sum()), 0, 0)
+            return
+        pos0, age0, w0, cell, alive, cfg, tags, dims, ids = args
+        n = pos0.shape[0]
+        if ids is not None:
+            assert torch.unique(ids[alive]).numel() == \
+                int(alive.sum()), \
+                "the pass's ids are not unique among its valid rows"
+        with counts_kept():
+            snap, chunks, *_ = nbk.prepare(pos0, age0, w0, cell, alive, cfg,
+                                           tags, dims=dims, ids=ids)
+        local = n if c_local is None else c_local
+        compare(call, cfg, snap, chunks, dims, int(alive.sum()),
+                int(alive[local:].sum()),
+                0 if ids is None else int((ids == -1).sum()))
+
+    def record(args, cuda):
+        if not (cuda and torch.cuda.is_current_stream_capturing()):
             if calls[0] in at:
                 check(calls[0], *args)
             elif LAST in at:
-                latest[:] = [calls[0], *(a.clone() if torch.is_tensor(a)
-                                         else a for a in args)]
+                latest[:] = [calls[0], *(
+                    nbk.Snapshot(a.f.clone(), a.i.clone())
+                    if isinstance(a, nbk.Snapshot) else a.clone()
+                    if torch.is_tensor(a) else a for a in args)]
             calls[0] += 1
+
+    def checked_pass(pos0, age0, w0, cell, alive, cfg, tags, dims=None,
+                     ids=None):
+        record((pos0, age0, w0, cell, alive, cfg, tags, dims, ids),
+               pos0.is_cuda)
         return inner(pos0, age0, w0, cell, alive, cfg, tags, dims=dims,
                      ids=ids)
 
-    module.neighbor_pass_blocks = checked
+    def checked_kernel(cfg, snap, chunks, ch=None, b=None):
+        record((cfg, snap, chunks), snap.f.is_cuda)
+        return inner(cfg, snap, chunks, ch=ch, b=b)
+
+    setattr(module, hook, checked_kernel if single else checked_pass)
     try:
         yield records
     finally:
-        module.neighbor_pass_blocks = inner
+        setattr(module, hook, inner)
     if latest:
         check(*latest)
-
 
 #: ``pair_checks``' name for the last pass
 LAST = "last"
@@ -2127,7 +2243,7 @@ def bench_stage_fns(dev, cut=None, checks=None):
     and leaves its records in ``checks[stage]``."""
     from particlesystem_tpu_torch import bench
     from particlesystem_tpu_torch.core.config import GridSpec, NBodyConfig
-    from particlesystem_tpu_torch.models import nbody
+    from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
     from particlesystem_tpu_torch.parallel import nbody_sharded
     fns = {"cap_10m": bench.bench_capacity, "cap_1m": bench.bench_capacity,
            "nbody_1m": bench.bench_nbody,
@@ -2144,7 +2260,7 @@ def bench_stage_fns(dev, cut=None, checks=None):
         # the sharded step runs every pass in Python; the single-device
         # loop only each key's first frame, its other frames replayed
         last = bench_passes(name, kw) - 1 if sharded else LAST
-        with pair_checks(nbody_sharded if sharded else nbody, (0, last),
+        with pair_checks(nbody_sharded if sharded else nbk, (0, last),
                          slots if sharded else None,
                          BENCH_CHECK_BLOCKS) as recs:
             out = fns[name](device=dev, **kw)
@@ -2190,6 +2306,13 @@ def phase_bench(dev, cut=None):
                 counts["physics_step"], counts["threefry_flat"]) == (
             passes, passes, frames, frames + nbody_stages), (
                 counts, passes, frames)
+        # A, D and E once a single-device frame; B and C once a pass of
+        # either path (the decomposed step's prepare runs them too)
+        single = passes - sum(bench_passes(name, kw)
+                              for name, kw in cut.items()
+                              if name == "nbody_sharded_d1")
+        assert [counts[k] for k in FRAME_KERNELS] == [
+            single, passes, passes, single, single], (counts, single)
     err = max([r["err"] or 0.0 for recs in checks.values() for r in recs],
               default=0.0)
     print(f"phase 12a: bench stages at cut counts "
@@ -2519,28 +2642,57 @@ GRAPH_NBODY_BATCHES = (10, 2, 8)
 GRAPH_TRACE_FRAMES = 8
 
 
-def trace_frames(step, k: int) -> dict:
-    """``k`` calls of ``step`` (a frame each) under torch.profiler: kernels
-    and copies/sets a frame, device ms a frame, wall ms a frame and the
-    device's busy share (the tracer can miss events, so device time is a
-    lower bound)."""
+#: a trace whose frames lack a launch is taken again, this often at most
+TRACE_ATTEMPTS = 3
+#: the profiler range around a trace's frames
+TRACE_MARK = "chip_smoke.traced_frames"
+
+
+def trace_frames(step, k: int, expect=()) -> dict:
+    """``k`` calls of ``step`` (a frame each) under torch.profiler, after
+    one more inside the same session whose events are left out (a
+    session's first kernels can go missing): kernels and copies/sets a
+    frame, device ms a frame, wall ms a frame, the device's busy share and
+    the trace's sums by kernel name (``sums``).  Each kernel function of
+    ``expect`` is launched once a frame: a trace that holds another count
+    of one is taken again (``attempts``), and fails after
+    :data:`TRACE_ATTEMPTS`."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(k):
-            step()
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+            with record_function(TRACE_MARK):
+                t0 = time.perf_counter()
+                for _ in range(k):
+                    step()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        cuda = torch.autograd.DeviceType.CUDA
+        mark = next(e.time_range.start for e in prof.events()
+                    if e.name == TRACE_MARK and e.device_type != cuda)
+        # the device's kernels, copies and sets, not the range's own span
+        events = [e for e in prof.events()
+                  if e.device_type == cuda and e.name != TRACE_MARK
+                  and e.time_range.start >= mark]
+        sums = kernel_sums(events)
+        short = {f: n for f in expect
+                 if (n := sum(h[0] for h in _launches_of(sums, f))) != k}
+        if not short:
+            break
+        print(f"trace of {k} frames, attempt {attempt}: launches seen "
+              f"{short}, expected {k} of each; taken again")
+    else:
+        raise AssertionError(f"no complete trace of {k} frames in "
+                             f"{TRACE_ATTEMPTS} attempts")
     moves = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     return dict(kernels=(len(events) - len(moves)) / k, moves=len(moves) / k,
                 device_ms=busy_us / k / 1e3, wall_ms=wall_us / k / 1e3,
-                busy=busy_us / wall_us)
+                busy=busy_us / wall_us, sums=sums, attempts=attempt)
 
 
 def graph_nodes(fn):
@@ -2620,7 +2772,8 @@ def phase_graphs_nbody(dev, eager_kernels=None):
                             next_active=sim._active))
     key = sim._key()
     counted = graph_launch_checks(sim.graphs, key, frames,
-                                  ("cluster_pair", "threefry_nbody"))
+                                  ("cluster_pair", "threefry_nbody")
+                                  + FRAME_KERNELS)
 
     reset_launches()
     frame = 0
@@ -2642,7 +2795,7 @@ def phase_graphs_nbody(dev, eager_kernels=None):
         for f in FIELDS:
             assert torch.equal(getattr(b["state"], f), getattr(ref, f)), \
                 f"frame {frame}: graph vs eager {f}"
-    launches(cluster_pair=frames, threefry_nbody=frames)
+    launches(**nbody_frames(frames))
     for f in FIELDS:
         assert torch.equal(getattr(sim.state, f), getattr(ref, f))
     del ref
@@ -2659,9 +2812,42 @@ def phase_graphs_nbody(dev, eager_kernels=None):
         step()
     host_us = (time.perf_counter() - t0) * 1e6 / MAIN_ITERS
     torch.cuda.synchronize()
-    trace = trace_frames(step, GRAPH_TRACE_FRAMES)
+    # the same frames traced twice: replayed, then from the same state run
+    # eagerly (the loop's frame function called, no graph), the two ends
+    # bit-identical; the two traces' sums, kernel by kernel
+    buffers = lambda: [*(getattr(sim._static, f) for f in FIELDS),
+                       sim._frame_t, sim._guards, sim._stats]
+    before = [b.clone() for b in buffers()]
+    trace = trace_frames(step, GRAPH_TRACE_FRAMES, NBODY_FRAME_FUNCTIONS)
+    replayed = [b.clone() for b in buffers()]
+    for b, v in zip(buffers(), before):
+        b.copy_(v)
+    eager = trace_frames(fn, GRAPH_TRACE_FRAMES, NBODY_FRAME_FUNCTIONS)
+    assert all(torch.equal(a, b) for a, b in zip(buffers(), replayed)), \
+        "traced replays and traced eager frames end apart"
+    del before, replayed
     nodes = graph_nodes(fn)
     last = batches[-1]
+    per = lambda t, name: t["sums"].get(name, (0, 0.0))
+    names = sorted(set(trace["sums"]) | set(eager["sums"]),
+                   key=lambda k: -max(per(trace, k)[1], per(eager, k)[1]))
+    print(f"phase 14: n-body, the same {GRAPH_TRACE_FRAMES} frames from "
+          f"the same state (after one frame left out of each trace; traces "
+          f"taken {trace['attempts']} | {eager['attempts']} times), each "
+          f"kernel's launches and microseconds a frame, replayed | eager: "
+          + "; ".join(
+              f"{name[:40]} {per(trace, name)[0] / GRAPH_TRACE_FRAMES:g} "
+              f"{per(trace, name)[1] / GRAPH_TRACE_FRAMES:.2f} | "
+              f"{per(eager, name)[0] / GRAPH_TRACE_FRAMES:g} "
+              f"{per(eager, name)[1] / GRAPH_TRACE_FRAMES:.2f}"
+              for name in names)
+          + f"; totals {trace['device_ms'] * 1e3:.2f} | "
+          f"{eager['device_ms'] * 1e3:.2f} us in {trace['kernels']:.1f} | "
+          f"{eager['kernels']:.1f} kernels")
+    in_replay = frame_kernel_times(trace["sums"], GRAPH_TRACE_FRAMES)
+    print(f"phase 14: the frame kernels in the {GRAPH_TRACE_FRAMES} traced "
+          f"replays, microseconds a launch (launches): " + "; ".join(
+              f"{k} {us / n:.2f} ({n})" for k, (n, us) in in_replay.items()))
     print(f"phase 14: n-body {cfg.n_fill} particles, {cfg.slots} slots, "
           f"run() in batches of {GRAPH_NBODY_BATCHES} through frame graphs "
           f"== {frames} eager nbody.step frames on the same prefixes "
@@ -2678,7 +2864,8 @@ def phase_graphs_nbody(dev, eager_kernels=None):
           f"{last['eager_host_us']:.1f} an eager frame; graph nodes "
           f"{'not measured' if nodes is None else nodes}; a trace of "
           f"{GRAPH_TRACE_FRAMES} replays: {trace['kernels']:.1f} kernels "
-          f"and {trace['moves']:.1f} copies/sets a frame"
+          f"and {trace['moves']:.1f} copies/sets a frame "
+          f"({NBODY_REPLAY_KERNELS_BEFORE} before the frame kernels)"
           + ("" if eager_kernels is None else
              f" ({eager_kernels} kernels and copies in phase 4's eager "
              f"frame)")
@@ -2686,7 +2873,7 @@ def phase_graphs_nbody(dev, eager_kernels=None):
           f"{trace['wall_ms']:.4f} ms a frame, device busy "
           f"{trace['busy']:.1%}")
     return dict(ms=last["ms"], eager_ms=last["eager_ms"], host_us=host_us,
-                nodes=nodes, **trace)
+                nodes=nodes, eager_device_ms=eager["device_ms"], **trace)
 
 
 def phase_graphs_dense(dev):
@@ -2794,6 +2981,264 @@ def phase_graphs_engine(dev):
     return dict(ms=ms[1], eager_ms=eager_ms[1], host_us=host_us, **trace)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the n-body frame's kernels A-E
+# ---------------------------------------------------------------------------
+
+#: frames of phase 15's kernel frames against the plain frames
+FRAME_HOLD_FRAMES = 20
+#: each frame kernel's XLA counterpart in the JAX package (there is no
+#: Pallas kernel there), by file and line
+FRAME_REPLACES = dict(
+    nbody_cells="particlesystem_tpu/ops/grid.py:49",
+    cell_starts="particlesystem_tpu/ops/neighbor_blocks.py:178",
+    block_prepare="particlesystem_tpu/ops/neighbor_blocks.py:118",
+    nbody_lifecycle="particlesystem_tpu/models/nbody.py:117",
+    nbody_spawn="particlesystem_tpu/models/nbody.py:161")
+
+
+def nbody_10m_cfg():
+    """The bench's 10M stage: 10,485,760 particles on 32^3."""
+    from particlesystem_tpu_torch import GridSpec, NBodyConfig
+    return NBodyConfig(n_fill=10 << 20, grid=GridSpec(grid_dim=32))
+
+
+def pos_sectors(alive) -> int:
+    """32-byte sectors of an (N, 3) float32 position tensor that hold an
+    alive slot's coordinates (a slot's 12 bytes lie in one or two)."""
+    import torch
+    first = torch.nonzero(alive).squeeze(1) * 12
+    return int(torch.unique(torch.cat([first // 32,
+                                       (first + 11) // 32])).numel())
+
+
+def frame_kernel_bytes(cfg, st, tiles, k: int) -> dict:
+    """{kernel: the bytes it must move} on the state ``st``: each input
+    read once, each output written once (``ops/frame_kernels.py``'s
+    shapes; D in place, its tags not written).  A's and E's depend on the
+    data: A reads the alive flag of every slot and the positions of the
+    alive ones only, counted by the 32-byte sectors that hold them; E the
+    tiles it ranks (those whose prefix holds fewer than ``k`` exploding or
+    free slots) and the ``k`` children it writes."""
+    import torch
+    from particlesystem_tpu_torch.ops import frame_kernels as fk
+    from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
+    n = st.slots
+    nc, nt = cfg.grid.num_cells, tiles.shape[0]
+    before = torch.cumsum(tiles, 0) - tiles
+    ranked = int(((before[:, 0] < k) | (before[:, 1] < k)).sum())
+    starts, stats = 4 * (nc + 2), 8 * len(fk.STATS)
+    return dict(
+        # alive in, the key out; pos of the alive slots
+        nbody_cells=(1 + 4) * n + 32 * pos_sectors(st.alive),
+        cell_starts=4 * n + starts + stats,
+        # pos, age, w, tags, skey, order in; f, i, inv, overflow out
+        block_prepare=(40 + 41) * n + starts
+        + 16 * (n // nbk.B) * nbk.C_MAX + stats,
+        # inv, acc_s, gmax_s, overflow_s, the state, uvec in; the state,
+        # flags out; the tile counts
+        nbody_lifecycle=(79 + 51) * n + 8 * nt + stats,
+        # the tile counts in, their scan out, the ranked tiles' flags; a
+        # child's parent (pos, vel, fert, tag) and row, and its two table
+        # entries
+        nbody_spawn=8 * nt * 2 + fk.TILE * ranked + (36 + 58 + 8) * k
+        + stats)
+
+
+def frame_kernel_calls(cfg, st, frame):
+    """{kernel: (kernel thunk, plain thunk)} of A-E on the inputs one
+    frame of ``st`` gives them (D and E into a scratch state, so that each
+    call repeats), the stats buffers reused; and the inputs."""
+    import torch
+    from particlesystem_tpu_torch.models import nbody
+    from particlesystem_tpu_torch.ops import frame_kernels as fk
+    from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
+    grid = cfg.grid
+    s = [fk.new_stats(st.device, grid.num_chunks) for _ in range(2)]
+    uvec, fert = nbody.frame_fields(cfg, frame, st.tag)
+    key = fk.nbody_cells_cuda(st.pos, st.alive, grid)
+    skey, order = torch.sort(key, stable=True)
+    starts = fk.cell_starts_cuda(skey, grid.num_cells, s[0], grid)
+    c_args = (st.pos, st.age, st.w, skey, order, starts, cfg, st.tag)
+    snap, chunks, inv, ovf = fk.block_prepare_cuda(*c_args, s[0], nbk.C_MAX,
+                                                   nbk.CH, nbk.B)
+    acc_s, gmax_s = nbk.kernel_call(cfg, snap, chunks)
+    scratch = [st.map(torch.empty_like) for _ in range(2)]
+    d_args = (acc_s, gmax_s, ovf, inv, uvec, cfg)
+    flags, tiles = fk.nbody_lifecycle_cuda(st, scratch[0], *d_args, s[0])
+    fk.nbody_lifecycle_plain(st, scratch[1], *d_args, s[1])
+    calls = dict(
+        nbody_cells=(lambda: fk.nbody_cells_cuda(st.pos, st.alive, grid),
+                     lambda: fk.nbody_cells_plain(st.pos, st.alive, grid)),
+        cell_starts=(
+            lambda: fk.cell_starts_cuda(skey, grid.num_cells, s[0], grid),
+            lambda: fk.cell_starts_plain(skey, grid.num_cells, s[1], grid)),
+        block_prepare=(
+            lambda: fk.block_prepare_cuda(*c_args, s[0], nbk.C_MAX, nbk.CH,
+                                          nbk.B),
+            lambda: fk.block_prepare_plain(*c_args, s[1], nbk.C_MAX, nbk.CH,
+                                           nbk.B)),
+        nbody_lifecycle=(
+            lambda: fk.nbody_lifecycle_cuda(st, scratch[0], *d_args, s[0]),
+            lambda: fk.nbody_lifecycle_plain(st, scratch[1], *d_args, s[1])),
+        nbody_spawn=(
+            lambda: fk.nbody_spawn_cuda(scratch[0], fert, frame, flags, tiles,
+                                        cfg, s[0]),
+            lambda: fk.nbody_spawn_plain(scratch[1], fert, frame, flags,
+                                         tiles, cfg, s[1])))
+    library = dict(cell_starts=lambda: torch.searchsorted(
+        skey, torch.arange(grid.num_cells + 2, dtype=torch.int32,
+                           device=st.device), out_int32=True))
+    return calls, library, tiles
+
+
+def time_frame_kernels(cfg, st, frame, label: str) -> dict:
+    """A-E on one frame of ``st``: each kernel through its wrapper and in a
+    CUDA graph, timed (plain, kernel, kernel, plain) beside its plain
+    version, its bound (bytes) and, for B, ``torch.searchsorted``; returns
+    {kernel: row of the kernels line}."""
+    calls, library, tiles = frame_kernel_calls(cfg, st, frame)
+    k = _spawned(cfg, st, frame)
+    work = frame_kernel_bytes(cfg, st, tiles, k)
+    rows = {}
+    for name, (kern, plain) in calls.items():
+        p1 = cuda_ms(plain, 3)
+        k1 = cuda_ms(kern, 50)
+        k2 = cuda_ms(kern, 50)
+        p2 = cuda_ms(plain, 3)
+        in_graph = graph_ms(kern, 50)
+        cold = cold_graph_ms(kern, 20)
+        lib = library.get(name)
+        lib_ms = None if lib is None else min(cuda_ms(lib, 50),
+                                              cuda_ms(lib, 50))
+        bound, by = roofline_ms(work[name], 0)
+        rows[name] = dict(ms=min(k1, k2), graph_ms=in_graph, cold_ms=cold,
+                          plain_ms=min(p1, p2), bound_ms=bound, bound_by=by,
+                          library_ms=lib_ms, bytes=work[name])
+        print(f"phase 15: {label}: {name}: kernel {k1:.5f} / {k2:.5f} ms "
+              f"through the wrapper, {in_graph:.5f} ms in a CUDA graph, "
+              f"{cold:.5f} ms in a graph with the L2 cleared before each "
+              f"launch; plain {p1:.4f} / {p2:.4f} ms (plain, kernel, kernel, "
+              f"plain); {work[name]} bytes: bound {bound:.5f} ms ({by}), "
+              f"{bound / min(k1, k2):.1%} of it through the wrapper, "
+              f"{bound / in_graph:.1%} in the graph, {bound / cold:.1%} "
+              f"with the L2 cleared"
+              + ("" if lib_ms is None else
+                 f"; torch.searchsorted {lib_ms:.5f} ms"))
+    return rows
+
+
+#: bytes read between two launches of a reading with the L2 cleared:
+#: twice the H100's 50 MB L2
+L2_CLEAR_BYTES = 100 << 20
+
+
+def cold_graph_ms(fn, reps: int) -> float:
+    """Milliseconds of ``fn``'s device work with its inputs out of the L2:
+    a CUDA graph of ``reps`` times (a read of :data:`L2_CLEAR_BYTES`, then
+    ``fn``), less a graph of the reads alone, per launch."""
+    import torch
+    buf = torch.ones((L2_CLEAR_BYTES // 4,), device="cuda")
+    clear = lambda: buf.amax()
+    both = graph_ms(lambda: (clear(), fn()), reps)
+    return both - graph_ms(clear, reps)
+
+
+def _spawned(cfg, st, frame) -> int:
+    """The children one frame of ``st`` spawns (a plain frame's count)."""
+    from particlesystem_tpu_torch.models import nbody
+    return int(nbody.step(st, frame, cfg)[1].n_spawned)
+
+
+def phase_frame_kernels(dev, plateau_state, plateau_frame: int):
+    """15: the frame kernels A-E (``csrc/nbody_frame.cu``).  (a) Each
+    against its plain version on the same inputs, bit for bit (every
+    field, mask, tag, flag, tile count and statistic; D and E into a
+    fresh state and in place): at full width (``NBodyConfig()``'s
+    2,097,152 slots, frame 0), on phase 4's plateau prefix, on the 10M
+    stage's 20,971,520 rows on 32^3 (frame 0), and on the edge states of
+    ``tools/frame_states.py`` (a spawn burst past the budget, no free
+    slot, the edge tags in contact and exploding, overflow rows beside
+    all-dead blocks, a 2-chunk budget, the frame as a 0-dim tensor); B and
+    C also on the decomposed step's inputs (a non-cubic grid, ids, -1
+    padding).  (b) 20 frames of ``nbody.step`` (the kernels) against 20
+    frames of ``frame_states.plain_frame`` (the plain versions), at full
+    width: every field and statistic bit for bit.  (c) Each kernel timed
+    on the plateau prefix (and at 10M) beside its bound.  Returns the
+    rows of the kernels line and the largest difference (0)."""
+    import torch
+    from particlesystem_tpu_torch import NBodyConfig
+    from particlesystem_tpu_torch.models import nbody
+    from particlesystem_tpu_torch.tools import frame_states as fs
+
+    t0 = time.perf_counter()
+    cfg = NBodyConfig()
+    frame_t = torch.tensor(plateau_frame, dtype=torch.int64, device=dev)
+    for label, c, st, frame in (
+            (f"full width {cfg.slots} slots, frame 0", cfg,
+             nbody.init_fill(cfg, dev), 0),
+            (f"plateau prefix {plateau_state.slots} rows, frame "
+             f"{plateau_frame}", cfg, plateau_state, frame_t),
+            (f"10M stage {nbody_10m_cfg().slots} rows on 32^3, frame 0",
+             nbody_10m_cfg(), None, 0)):
+        if st is None:
+            st = nbody.init_fill(c, dev)
+        stats = fs.hold_kernels(c, st, frame)
+        del st
+        torch.cuda.empty_cache()
+        print(f"phase 15: {label}: A-E == plain bit for bit (D and E also "
+              f"in place); stats {stats}")
+    for case in fs.edge_states(dev):
+        stats = fs.hold_kernels(case.cfg, case.state, case.frame, case.c_max)
+        print(f"phase 15: edge state {case.name}: A-E == plain bit for bit; "
+              f"stats {stats}")
+        want = dict(burst="n_spawned", full="n_spawn_capped",
+                    tags="n_collision_kills", cmax2="n_listed_dropped",
+                    overflow="n_overflow_kills")[case.name]
+        assert stats[want] > 0, f"edge state {case.name}: no {want}"
+    dcfg, args, dims, ids = fs.dims_case(dev)
+    stats = fs.hold_prepare(dcfg, args, dims, ids)
+    print(f"phase 15: dims {dims} with ids and {int((ids == -1).sum())} "
+          f"padding rows: B and C == plain bit for bit; stats {stats}")
+    frames = fs.hold_frames(cfg, FRAME_HOLD_FRAMES, dev)
+    print(f"phase 15: {FRAME_HOLD_FRAMES} frames of nbody.step (the "
+          f"kernels) == {FRAME_HOLD_FRAMES} frames composed of the plain "
+          f"versions at {cfg.slots} slots, every field and stat bit for "
+          f"bit; frame 0 {frames[0]}, frame {FRAME_HOLD_FRAMES - 1} "
+          f"{frames[-1]}")
+    rows = time_frame_kernels(cfg, plateau_state, frame_t,
+                              f"plateau prefix {plateau_state.slots} rows")
+    big = nbody.init_fill(nbody_10m_cfg(), dev)
+    time_frame_kernels(nbody_10m_cfg(), big, 0,
+                       f"10M stage {big.slots} rows, frame 0")
+    del big
+    trace_10m(dev)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return rows, 0.0
+
+
+def trace_10m(dev, frames: int = 2, top: int = 12):
+    """The 10M stage's frame at its plateau prefix, as the bench runs it
+    (3 frames one by one, then a batch of 4 through the prefix's graph):
+    a trace of ``frames`` replays, the largest kernels' sums."""
+    from particlesystem_tpu_torch.api import NBodySimulation
+    sim = NBodySimulation(nbody_10m_cfg(), device=dev)
+    sim.run(3, batch=1)
+    sim.run(4, batch=4)
+    key = sim._key()
+    fn = lambda: sim._loop_frame(sim._active, sim._width)
+    trace = trace_frames(lambda: sim.graphs.step(key, fn), frames,
+                         NBODY_FRAME_FUNCTIONS)
+    largest = sorted(trace["sums"].items(), key=lambda kv: -kv[1][1])[:top]
+    print(f"phase 15: 10M stage, frames {sim.frame + 1}-{sim.frame + frames} "
+          f"replayed on the prefix {sim._active or sim.cfg.slots} of "
+          f"{sim.cfg.slots} slots (alive {int(sim.last_stats.n_alive)}): "
+          f"{trace['device_ms']:.4f} ms of device time in "
+          f"{trace['wall_ms']:.4f} ms a frame, {trace['kernels']:.1f} "
+          f"kernels and {trace['moves']:.1f} copies/sets; microseconds a "
+          f"frame: " + "; ".join(f"{name[:40]} {us / frames:.1f}"
+                                 for name, (_, us) in largest))
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2834,6 +3279,8 @@ def main() -> int:
     phase_graphs_nbody(dev, main_path["eager_kernels"])
     phase_graphs_dense(dev)
     phase_graphs_engine(dev)
+    frame_rows, frame_err = phase_frame_kernels(
+        dev, main_path.pop("plateau_state"), main_path["plateau_frame"])
 
     kernels = [{
         "name": "cluster_pair",
@@ -2897,7 +3344,20 @@ def main() -> int:
         "bound_ms": rng["bound_ms"],
         "bound_by": rng["bound_by"],
         "library_ms": None,
-    }]
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "particlesystem_tpu_torch/csrc/nbody_frame.cu",
+        # XLA's fusions of the jitted frame: no Pallas kernel there
+        "replaces": FRAME_REPLACES[name],
+        "launches": main_path["frame_launches"][name],
+        "max_abs_err": frame_err,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    } for name, row in frame_rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

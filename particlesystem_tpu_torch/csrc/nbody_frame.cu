@@ -1,0 +1,699 @@
+// The n-body frame's per-row work around the pair kernel, for Hopper
+// (sm_90a): binning, snapshot, chunk table, lifecycle and spawn.
+//
+// Replaces XLA's fusions of the JAX package's jitted frame,
+// particlesystem_tpu/models/nbody.py::step_fields (:271-331) with
+// impl="blocks": the torus wrap and cell ids (ops/grid.py:34-60), prepare
+// (ops/neighbor_blocks.py:118-295) less its lax.sort, unsort_outputs
+// (:520-541) and lifecycle_update (models/nbody.py:117-268).  There is no
+// Pallas kernel here; the port's plain versions, which these kernels equal
+// bit for bit, are ops/frame_kernels.py's *_plain functions, built on
+// ops/grid.py, ops/neighbor_blocks.py, models/nbody.py and ops/compact.py.
+// The frame on the card is
+//
+//   A ps_nbody_cells     one thread a slot: wrap, cell, sort key
+//                        alive ? cell : num_cells (int32); a dead slot's
+//                        position is not read
+//     torch.sort(key, stable=True)
+//   B ps_cell_starts     one thread a sorted row: starts[k] = r for k in
+//                        (skey[r-1], skey[r]]; the last block to finish
+//                        reduces the counts starts[k+1] - starts[k] to the
+//                        largest cell and, on the cubic grid, the largest
+//                        chunk (A counts nothing: every count is a
+//                        difference of starts, so the frame needs no
+//                        per-row atomic)
+//   C ps_block_prepare   one CTA a block of b sorted rows: the snapshot
+//                        f (7, N) and i (2, N) gathered through order, the
+//                        in-cell rank and overflow, the out-of-band bands,
+//                        the inverse permutation inv[order[r]] = r, the
+//                        block's valid cell range, its 9 stencil ranges and
+//                        its chunk table (NB, c_max, 4)
+//     the pair kernel (neighbor_blocks.cu)
+//   D ps_nbody_lifecycle one thread a slot, slot order: the pair outputs
+//                        read through inv, kill/touch and the mine-side
+//                        age window, the five flags, clamped Euler, the
+//                        wrap (pos_w is recomputed here from pos), aging,
+//                        explosion; explode/free flags and their counts a
+//                        tile of 256 slots
+//   E ps_nbody_spawn     three kernels: one block scans the tile counts;
+//                        each tile ranks its exploding and free slots (a
+//                        block scan over the flags plus the tile's prefix)
+//                        into the tables src[i] and tgt[i] for i < k =
+//                        min(n_child, n_free, e); one thread a child
+//                        writes the row.
+//
+// Statistics go into one int64 buffer (ops/frame_kernels.STATS; zeroed by
+// the wrapper), by integer atomics only, so they do not depend on the order
+// in which blocks run.
+//
+// In place: D may write the state it reads (out == in), since each thread
+// reads its slot's fields before it writes them and touches no other slot;
+// E reads exploding parents and writes free slots, which are disjoint.  So
+// D's and E's state pointers are not __restrict__.
+//
+// Exactness: every float operation is an explicitly rounded intrinsic
+// (__fmul_rn, __fadd_rn, __fsub_rn) in the plain version's order, so nvcc
+// contracts nothing into an FMA: vel*dt + ((0.5*acc)*dt)*dt, then the clamp,
+// pos + dx, the wrap's shift d*cell_size (d negated first on the y and z
+// axes), vel + acc*dt, age + dt, uvec*speed.  The clamps pass NaN through
+// as torch.clamp does.
+//
+// What bounds them on the card: bytes.  A reads 13 bytes a slot and writes
+// 4, B reads 4 a row, C 40 a row in (gathered through order) and 41 out,
+// D 79 in (gathered through inv) and 51 out, E a byte a slot of the tiles
+// it ranks and some 100 a child.  The design keeps each pass to one read
+// of its inputs: no intermediate touches device memory, every mask and
+// count lives in registers, a block reduces in registers before it
+// touches shared or global memory, B's grid strides so that few blocks
+// queue on its one ticket, C's 9 ranges are 9 threads (each range's start
+// is clipped by the previous range's end, which has a closed form), and
+// a tile of E with nothing to rank below k leaves before it reads its
+// flags.  The gathers stay: a random 4-byte read moves a 32-byte sector,
+// which is what keeps C and D from their bounds at 10M rows.
+
+#include <climits>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;           // A, C, D, E: threads a block
+constexpr int TILE = THREADS;          // slots a spawn tile (D's block;
+                                       // ops/frame_kernels.TILE)
+constexpr int STARTS_THREADS = 1024;   // B: its last block reduces the cells
+constexpr int STARTS_BLOCKS = 132 * 2; // B: two blocks an SM
+constexpr int SCAN_THREADS = 1024;     // E's scan of the tile counts
+constexpr int R = 9;                   // stencil ranges a block
+constexpr long long ALIGN = 128;       // chunk starts align to 128 columns
+constexpr int BIG = 1 << 30;
+constexpr unsigned FULL = 0xffffffffu;
+
+// the statistics buffer, in ops/frame_kernels.STATS order; then one
+// counter a chunk
+enum Stat {
+    N_ALIVE, N_AGE_DEATHS, N_COLLISION_KILLS, N_OVERFLOW_KILLS, N_SURVIVALS,
+    N_SPAWNED, N_SPAWN_CAPPED, N_LISTED_DROPPED, MAX_CELL, MAX_CHUNK,
+    N_TAIL_ALIVE, DONE_STARTS, N_STATS
+};
+
+struct Grid {
+    int g, half;
+    float inv, cs;   // float32(1 / cell_size), float32(cell_size)
+};
+
+struct State {
+    float *pos, *vel, *acc, *w, *age, *life;
+    unsigned char *alive, *parent;
+    long long* tag;
+};
+
+struct Prep {
+    long long n;
+    int b, num_cells, row_stride, plane_stride, cap, c_max, ch;
+    float kid_age, life;
+    int offs[R];   // the stencil's cell offsets, ascending
+};
+
+struct Life {
+    long long n;
+    float dt, life, kid_age, max_dx, max_v, speed;
+    Grid gr;
+};
+
+__device__ __forceinline__ void add_stat(long long* stats, int i, long long v)
+{
+    if (v)
+        atomicAdd(reinterpret_cast<unsigned long long*>(stats + i),
+                  static_cast<unsigned long long>(v));
+}
+
+__device__ __forceinline__ int floor_mod(int a, int m)
+{
+    const int r = a % m;
+    return r < 0 ? r + m : r;
+}
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi)
+{
+    return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// ops/neighbor.collision_okey: the tag's low 32 bits as int32, INT32_MIN
+// lifted to INT32_MIN + 1
+__device__ __forceinline__ int okey(long long tag)
+{
+    const int k = static_cast<int>(static_cast<uint32_t>(tag));
+    return k == INT_MIN ? INT_MIN + 1 : k;
+}
+
+// ops/grid.wrap_positions: (x, y, z) shifted by whole cells into the box;
+// returns the wrapped (i1, i2, i3)
+__device__ __forceinline__ int3 wrap(float& x, float& y, float& z,
+                                     const Grid& gr)
+{
+    const int i1 = static_cast<int>(floorf(__fmul_rn(-y, gr.inv))) + gr.half;
+    const int i2 = static_cast<int>(floorf(__fmul_rn(x, gr.inv))) + gr.half;
+    const int i3 = static_cast<int>(floorf(__fmul_rn(-z, gr.inv))) + gr.half;
+    const int w1 = floor_mod(i1, gr.g);
+    const int w2 = floor_mod(i2, gr.g);
+    const int w3 = floor_mod(i3, gr.g);
+    x = __fadd_rn(x, __fmul_rn(static_cast<float>(w2 - i2), gr.cs));
+    y = __fadd_rn(y, __fmul_rn(-static_cast<float>(w1 - i1), gr.cs));
+    z = __fadd_rn(z, __fmul_rn(-static_cast<float>(w3 - i3), gr.cs));
+    return make_int3(w1, w2, w3);
+}
+
+// the largest of the block's non-negative values, in every thread
+__device__ long long block_max(long long v)
+{
+    __shared__ long long part[32];
+#pragma unroll
+    for (int o = 16; o; o >>= 1) v = max(v, __shfl_down_sync(FULL, v, o));
+    __syncthreads();
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+    __syncthreads();
+    v = 0;
+    for (int i = 0; i < (blockDim.x >> 5); ++i) v = max(v, part[i]);
+    return v;
+}
+
+// exclusive prefix sum over a block of NT threads (called by all of them)
+template <int NT>
+__device__ int block_exclusive_scan(int v)
+{
+    __shared__ int warp_sums[NT / 32];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int inc = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int up = __shfl_up_sync(FULL, inc, o);
+        if (lane >= o) inc += up;
+    }
+    __syncthreads();   // a call before may still read warp_sums
+    if (lane == 31) warp_sums[warp] = inc;
+    __syncthreads();
+    int before = 0;
+    for (int i = 0; i < warp; ++i) before += warp_sums[i];
+    return before + inc - v;
+}
+
+// A: the sort key of every slot
+__global__ void __launch_bounds__(THREADS) nbody_cells(
+    const float* __restrict__ pos, const unsigned char* __restrict__ alive,
+    long long n, Grid gr, int* __restrict__ key)
+{
+    const long long s = static_cast<long long>(blockIdx.x) * THREADS
+                        + threadIdx.x;
+    if (s >= n) return;
+    // a dead slot's key is num_cells: its position is not read
+    if (!alive[s]) {
+        key[s] = gr.g * gr.g * gr.g;
+        return;
+    }
+    float x = pos[3 * s], y = pos[3 * s + 1], z = pos[3 * s + 2];
+    const int3 c = wrap(x, y, z, gr);
+    key[s] = (c.z * gr.g + c.x) * gr.g + c.y;
+}
+
+// B: starts = searchsorted(skey, arange(num_cells + 2)), then the maxima
+__global__ void __launch_bounds__(STARTS_THREADS) cell_starts(
+    const int* __restrict__ skey, long long n, int num_cells,
+    int* __restrict__ starts, long long* stats, int g, int cd, int cf)
+{
+    for (long long r = static_cast<long long>(blockIdx.x) * STARTS_THREADS
+                       + threadIdx.x;
+         r <= n; r += static_cast<long long>(gridDim.x) * STARTS_THREADS) {
+        const int lo = r == 0 ? -1 : skey[r - 1];
+        const int hi = r == n ? num_cells + 1 : skey[r];
+        for (int k = lo + 1; k <= hi; ++k) starts[k] = static_cast<int>(r);
+        // the few threads that wrote make their starts visible device-wide
+        if (lo < hi) __threadfence();
+    }
+    // the last block to finish sees every start
+    __syncthreads();
+    __shared__ bool last;
+    if (threadIdx.x == 0) {
+        __threadfence();
+        last = atomicAdd(reinterpret_cast<unsigned long long*>(
+                             stats + DONE_STARTS), 1ull)
+               == gridDim.x - 1ull;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    unsigned long long* chunk =
+        reinterpret_cast<unsigned long long*>(stats + N_STATS);
+    long long best = 0;
+    for (int k = threadIdx.x; k < num_cells; k += STARTS_THREADS) {
+        const int c = __ldcg(starts + k + 1) - __ldcg(starts + k);
+        best = max(best, static_cast<long long>(c));
+        if (cf) {
+            const int i3 = k / (g * g), rem = k % (g * g);
+            atomicAdd(chunk + ((i3 / cd) * cf + rem / g / cd) * cf
+                              + rem % g / cd,
+                      static_cast<unsigned long long>(c));
+        }
+    }
+    best = block_max(best);
+    if (threadIdx.x == 0) {
+        stats[MAX_CELL] = best;
+        stats[DONE_STARTS] = 0;
+    }
+    if (!cf) return;
+    __syncthreads();
+    best = 0;
+    for (int c = threadIdx.x; c < cf * cf * cf; c += STARTS_THREADS)
+        best = max(best, static_cast<long long>(__ldcg(chunk + c)));
+    best = block_max(best);
+    if (threadIdx.x == 0) stats[MAX_CHUNK] = best;
+    // leave the counters zero, so that a launch on the same buffer again
+    // (a timing loop) counts from zero too
+    for (int c = threadIdx.x; c < cf * cf * cf; c += STARTS_THREADS)
+        chunk[c] = 0;
+}
+
+// C: the kernel inputs of one block of p.b sorted rows
+__global__ void __launch_bounds__(THREADS) block_prepare(
+    const float* __restrict__ pos, const float* __restrict__ age,
+    const float* __restrict__ w, const long long* __restrict__ tags,
+    const int* __restrict__ ids, const int* __restrict__ skey,
+    const long long* __restrict__ order, const int* __restrict__ starts,
+    Prep p, float* __restrict__ f, int* __restrict__ iout,
+    int* __restrict__ chunks, int* __restrict__ inv,
+    unsigned char* __restrict__ overflow_s, long long* stats)
+{
+    __shared__ int cmin, cmax;
+    __shared__ long long astart[R], lead[R], tot[R], cum[R];
+    __shared__ int nact;
+    if (threadIdx.x == 0) {
+        cmin = BIG;
+        cmax = -BIG;
+    }
+    __syncthreads();
+    const long long n = p.n;
+    const long long r0 = static_cast<long long>(blockIdx.x) * p.b;
+    int lmin = BIG, lmax = -BIG;
+    for (int t = threadIdx.x; t < p.b; t += THREADS) {
+        const long long r = r0 + t;
+        const long long o = order[r];
+        const int sk = skey[r];
+        inv[o] = static_cast<int>(r);
+        const long long rank = r - starts[sk];
+        const bool in_grid = sk < p.num_cells;
+        const bool valid = in_grid && rank < p.cap;
+        overflow_s[r] = in_grid && rank >= p.cap;
+        const float a = age[o];
+        const bool ok = valid && a >= p.kid_age;
+        const float base = valid ? -10.0f : -4194304.0f;
+        const float bad_a = __fsub_rn(
+            base, static_cast<float>(2 * static_cast<int>(r % 524288)));
+        const float bad_b = __fsub_rn(
+            base, static_cast<float>(2 * static_cast<int>(r % 524287)));
+        const int i3 = sk / p.plane_stride, rem = sk % p.plane_stride;
+        f[r] = pos[3 * o];
+        f[n + r] = pos[3 * o + 1];
+        f[2 * n + r] = pos[3 * o + 2];
+        f[3 * n + r] = ok ? static_cast<float>(rem / p.row_stride) : bad_a;
+        f[4 * n + r] = ok ? static_cast<float>(rem % p.row_stride) : bad_b;
+        f[5 * n + r] = ok ? static_cast<float>(i3) : bad_a;
+        f[6 * n + r] = w[o];
+        iout[r] = ids ? ids[o] : static_cast<int>(o);
+        iout[n + r] = a <= p.life ? okey(tags[o]) : INT_MIN;
+        if (valid) {
+            lmin = min(lmin, sk);
+            lmax = max(lmax, sk);
+        }
+    }
+    lmin = __reduce_min_sync(FULL, lmin);
+    lmax = __reduce_max_sync(FULL, lmax);
+    if ((threadIdx.x & 31) == 0) {
+        atomicMin(&cmin, lmin);
+        atomicMax(&cmax, lmax);
+    }
+    __syncthreads();
+    if (threadIdx.x < R) {
+        // range q of the 9, ascending, its start clipped past the previous
+        // ranges' end: their ends ascend with the offsets, so that end is
+        // range q-1's own
+        const int q = threadIdx.x;
+        const bool empty = cmax < cmin;
+        const long long prev_hi =
+            q ? static_cast<long long>(cmax) + 1 + p.offs[q - 1] : -BIG;
+        const long long lo = max(static_cast<long long>(cmin) - 1
+                                 + p.offs[q], prev_hi + 1);
+        const long long hi = static_cast<long long>(cmax) + 1 + p.offs[q];
+        const long long rs = starts[min(max(lo, 0ll),
+                                        (long long)p.num_cells)];
+        const long long re = starts[min(max(hi + 1, 0ll),
+                                        (long long)p.num_cells)];
+        const long long count = !empty && re > rs ? re - rs : 0;
+        astart[q] = rs / ALIGN * ALIGN;
+        lead[q] = rs - astart[q];
+        tot[q] = lead[q] + count;
+        cum[q] = count > 0 ? (tot[q] + p.ch - 1) / p.ch : 0;   // chunks
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        long long c = 0;
+        for (int q = 0; q < R; ++q) cum[q] = c += cum[q];   // inclusive
+        if (c > p.c_max) add_stat(stats, N_LISTED_DROPPED, c - p.c_max);
+        nact = static_cast<int>(min(c, static_cast<long long>(p.c_max)));
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < p.c_max; j += THREADS) {
+        int4 row = make_int4(0, 0, 0, nact);
+        if (j < nact) {
+            int q = 0;
+            while (cum[q] <= j) ++q;   // searchsorted(cum, j, right=True)
+            const long long c_in = j - (q ? cum[q - 1] : 0);
+            row.x = static_cast<int>(astart[q] + c_in * p.ch);
+            row.y = static_cast<int>(min(max(lead[q] - c_in * p.ch, 0ll),
+                                         (long long)p.ch));
+            row.z = static_cast<int>(min(max(tot[q] - c_in * p.ch, 0ll),
+                                         (long long)p.ch));
+        }
+        reinterpret_cast<int4*>(chunks)[
+            static_cast<long long>(blockIdx.x) * p.c_max + j] = row;
+    }
+}
+
+// D: the lifecycle of every slot, in slot order
+__global__ void __launch_bounds__(THREADS) nbody_lifecycle(
+    State in, State out, const float* __restrict__ acc_s,
+    const int* __restrict__ gmax_s,
+    const unsigned char* __restrict__ overflow_s,
+    const int* __restrict__ inv, const float* __restrict__ uvec, Life c,
+    unsigned char* __restrict__ flags, int* __restrict__ tiles,
+    long long* stats)
+{
+    __shared__ int counts[7];
+    if (threadIdx.x < 7) counts[threadIdx.x] = 0;
+    __syncthreads();
+    const long long n = c.n;
+    const long long s = static_cast<long long>(blockIdx.x) * THREADS
+                        + threadIdx.x;
+    bool die_age = false, die_coll = false, ovf = false, survive = false;
+    bool alive2 = false, explode = false;
+    if (s < n) {
+        // every read of the slot before any write (out may be in)
+        const int q = inv[s];
+        const float a[3] = {acc_s[q], acc_s[n + q], acc_s[2 * n + q]};
+        const int gm = gmax_s[q];
+        ovf = overflow_s[q];
+        float p[3] = {in.pos[3 * s], in.pos[3 * s + 1], in.pos[3 * s + 2]};
+        const float v[3] = {in.vel[3 * s], in.vel[3 * s + 1],
+                            in.vel[3 * s + 2]};
+        const float w0 = in.w[s], age0 = in.age[s], life0 = in.life[s];
+        const bool alive = in.alive[s], parent0 = in.parent[s];
+        const long long tag = in.tag[s];
+
+        const bool win = age0 >= c.kid_age && age0 <= c.life;
+        const bool kill = gm > okey(tag) && win;
+        const bool touch = gm > INT_MIN && win;
+        const bool alive1 = alive && !ovf;
+        die_age = alive1 && age0 > c.life;
+        die_coll = alive1 && !die_age && kill;
+        const bool dead_now = die_age || die_coll || ovf;
+        survive = alive1 && !die_age && !die_coll && touch;
+        const bool normal = alive1 && !die_age && !die_coll && !survive;
+        const float age1 = __fadd_rn(age0, c.dt);
+        explode = normal && age1 >= life0 && !parent0;
+        alive2 = alive1 && !dead_now;
+
+        float np[3], nv[3];
+        if (normal) {
+            for (int k = 0; k < 3; ++k) {
+                float dx = __fadd_rn(
+                    __fmul_rn(v[k], c.dt),
+                    __fmul_rn(__fmul_rn(__fmul_rn(0.5f, a[k]), c.dt), c.dt));
+                np[k] = __fadd_rn(p[k], clampf(dx, -c.max_dx, c.max_dx));
+                nv[k] = clampf(__fadd_rn(v[k], __fmul_rn(a[k], c.dt)),
+                               -c.max_v, c.max_v);
+            }
+            wrap(np[0], np[1], np[2], c.gr);
+        } else if (dead_now) {
+            np[0] = np[1] = np[2] = 0.0f;
+        } else {
+            wrap(p[0], p[1], p[2], c.gr);   // pos_w
+            np[0] = p[0];
+            np[1] = p[1];
+            np[2] = p[2];
+        }
+        if (!normal)
+            for (int k = 0; k < 3; ++k)
+                nv[k] = dead_now || survive ? 0.0f : v[k];
+        if (explode)
+            for (int k = 0; k < 3; ++k)
+                nv[k] = __fmul_rn(uvec[3 * s + k], c.speed);
+        for (int k = 0; k < 3; ++k) {
+            out.pos[3 * s + k] = np[k];
+            out.vel[3 * s + k] = nv[k];
+            out.acc[3 * s + k] = normal ? a[k] : 0.0f;
+        }
+        out.age[s] = normal ? age1 : (dead_now || survive ? 0.0f : age0);
+        out.w[s] = dead_now ? 0.0f : w0;
+        out.life[s] = dead_now ? 0.0f : life0;
+        out.alive[s] = alive2;
+        out.parent[s] = (!(dead_now || survive) && parent0) || explode;
+        if (out.tag != in.tag) out.tag[s] = tag;
+        flags[s] = static_cast<unsigned char>(explode | (!alive2 << 1));
+    }
+    const bool free_slot = s < n && !alive2;
+    const bool mine[7] = {die_age, die_coll, ovf, survive, alive2, explode,
+                          free_slot};
+    int m[7];
+    for (int k = 0; k < 7; ++k) m[k] = __popc(__ballot_sync(FULL, mine[k]));
+    if ((threadIdx.x & 31) == 0)
+        for (int k = 0; k < 7; ++k)
+            if (m[k]) atomicAdd(&counts[k], m[k]);
+    __syncthreads();
+    if (threadIdx.x < 5) {
+        const int slot[5] = {N_AGE_DEATHS, N_COLLISION_KILLS,
+                             N_OVERFLOW_KILLS, N_SURVIVALS, N_ALIVE};
+        add_stat(stats, slot[threadIdx.x], counts[threadIdx.x]);
+    } else if (threadIdx.x < 7) {
+        tiles[2 * blockIdx.x + threadIdx.x - 5] = counts[threadIdx.x];
+    }
+}
+
+// E, first kernel: the inclusive prefix sums of the tiles' (explode,
+// free) counts, by one block: each thread sums a run of tiles, the block
+// scans the runs' sums, each thread writes its run's prefix sums
+__global__ void __launch_bounds__(SCAN_THREADS) spawn_scan(
+    const int2* __restrict__ tiles, int n_tiles, int2* __restrict__ cum)
+{
+    const int per = (n_tiles + SCAN_THREADS - 1) / SCAN_THREADS;
+    const int first = min(static_cast<int>(threadIdx.x) * per, n_tiles);
+    const int last = min(first + per, n_tiles);
+    int ex = 0, fr = 0;
+    for (int t = first; t < last; ++t) {
+        const int2 c = tiles[t];
+        ex += c.x;
+        fr += c.y;
+    }
+    ex = block_exclusive_scan<SCAN_THREADS>(ex);
+    fr = block_exclusive_scan<SCAN_THREADS>(fr);
+    for (int t = first; t < last; ++t) {
+        const int2 c = tiles[t];
+        ex += c.x;
+        fr += c.y;
+        cum[t] = make_int2(ex, fr);
+    }
+}
+
+// E, second kernel: the tile's exploding and free slots to their ranks
+__global__ void __launch_bounds__(TILE) spawn_rank(
+    const unsigned char* __restrict__ flags, const int* __restrict__ cum,
+    long long n, int n_tiles, int e, int* __restrict__ src,
+    int* __restrict__ tgt, long long* stats)
+{
+    const int n_child = cum[2 * (n_tiles - 1)];
+    const int n_free = cum[2 * (n_tiles - 1) + 1];
+    const int k = min(min(n_child, n_free), e);
+    const int t = blockIdx.x;
+    if (t == 0 && threadIdx.x == 0) {
+        stats[N_SPAWNED] = k;
+        stats[N_SPAWN_CAPPED] = min(n_child, e) - k;
+        add_stat(stats, N_ALIVE, k);
+    }
+    const int ex0 = t ? cum[2 * (t - 1)] : 0;
+    const int fr0 = t ? cum[2 * (t - 1) + 1] : 0;
+    if (ex0 >= k && fr0 >= k) return;   // the same for the whole block
+    const long long s = static_cast<long long>(t) * TILE + threadIdx.x;
+    const int fl = s < n ? flags[s] : 0;
+    // explode counts in the low half, free in the high half (a tile < 2^16)
+    const int before = block_exclusive_scan<TILE>((fl & 1)
+                                                  | ((fl & 2) << 15));
+    const int re = ex0 + (before & 0xFFFF), rf = fr0 + (before >> 16);
+    if ((fl & 1) && re < k) src[re] = static_cast<int>(s);
+    if ((fl & 2) && rf < k) tgt[rf] = static_cast<int>(s);
+}
+
+// E, third kernel: child i of parent src[i] into slot tgt[i]
+__global__ void __launch_bounds__(THREADS) spawn_write(
+    State out, const float* __restrict__ fert,
+    const long long* __restrict__ frame, const int* __restrict__ cum,
+    int n_tiles, int e, float weight, const int* __restrict__ src,
+    const int* __restrict__ tgt)
+{
+    const int i = blockIdx.x * THREADS + threadIdx.x;
+    const int k = min(min(cum[2 * (n_tiles - 1)], cum[2 * (n_tiles - 1) + 1]),
+                      e);
+    if (i >= k) return;
+    const long long a = src[i], b = tgt[i];
+    float p[3], v[3];
+    for (int j = 0; j < 3; ++j) {
+        p[j] = out.pos[3 * a + j];
+        v[j] = out.vel[3 * a + j];   // the parent's explosion velocity
+    }
+    const float life = fert[a];
+    // core/rng.tag_mix: tag * 2654435761 + frame * 2246822519 + 977 mod 2^32
+    const uint32_t tag = static_cast<uint32_t>(out.tag[a]) * 2654435761u
+                         + static_cast<uint32_t>(*frame) * 2246822519u + 977u;
+    for (int j = 0; j < 3; ++j) {
+        out.pos[3 * b + j] = p[j];
+        out.vel[3 * b + j] = -v[j];
+        out.acc[3 * b + j] = 0.0f;
+    }
+    out.w[b] = weight;
+    out.age[b] = 0.0f;
+    out.life[b] = life;
+    out.alive[b] = 1;
+    out.parent[b] = 0;
+    out.tag[b] = static_cast<long long>(tag);
+}
+
+int blocks_for(long long items, int threads)
+{
+    return static_cast<int>((items + threads - 1) / threads);
+}
+
+State state(float* const* f, unsigned char* const* b, long long* tag)
+{
+    return State{f[0], f[1], f[2], f[3], f[4], f[5], b[0], b[1], tag};
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes; each launches on the given stream and
+// returns the launch's CUDA error (0 on success).  Host arrays (offs,
+// consts, fields) are read before the launch.
+
+// A: key (n,) int32 of pos (n, 3) float32 and alive (n,) bool on a cubic
+// grid of g cells an axis; inv_cell = float32(1 / cell_size)
+extern "C" int ps_nbody_cells(const float* pos, const unsigned char* alive,
+                              long long n, int g, float inv_cell,
+                              float cell_size, int* key, void* stream)
+{
+    if (n < 0 || g <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (n == 0) return 0;
+    nbody_cells<<<blocks_for(n, THREADS), THREADS, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+        pos, alive, n, Grid{g, g / 2, inv_cell, cell_size}, key);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// B: starts (num_cells + 2,) int32 of the sorted keys skey (n,) int32, each
+// in [0, num_cells]; stats[MAX_CELL] and, where cf > 0 (the cubic grid of g
+// cells an axis in chunks of cd cells), stats[MAX_CHUNK], with the chunk
+// counters after N_STATS.  stats zeroed.
+extern "C" int ps_cell_starts(const int* skey, long long n, int num_cells,
+                              int* starts, long long* stats, int g, int cd,
+                              int cf, void* stream)
+{
+    if (n < 0 || num_cells <= 0 || (cf && (g <= 0 || cd <= 0)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    // a grid-stride loop over at most STARTS_BLOCKS blocks: each block
+    // takes one ticket of the last-block count, and tickets on one
+    // address are served one at a time
+    const int blocks = blocks_for(n + 1, STARTS_THREADS);
+    cell_starts<<<blocks < STARTS_BLOCKS ? blocks : STARTS_BLOCKS,
+                  STARTS_THREADS, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+        skey, n, num_cells, starts, stats, g, cd, cf);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// C: snapshot f (7, n) float32 and i (2, n) int32, chunks (n / b, c_max, 4)
+// int32 (16-byte aligned), inv (n,) int32 and overflow_s (n,) bool of the
+// rows sorted by skey through order (int64); ids (int32) or null for the
+// slot; offs (host, 9) the ascending stencil offsets; stats[N_LISTED_DROPPED]
+// accumulates.  n a multiple of b.
+extern "C" int ps_block_prepare(
+    const float* pos, const float* age, const float* w, const long long* tags,
+    const int* ids, const int* skey, const long long* order,
+    const int* starts, long long n, int b, int num_cells, int row_stride,
+    int plane_stride, const int* offs, int cap, float kid_age, float life,
+    int c_max, int ch, float* f, int* iout, int* chunks, int* inv,
+    unsigned char* overflow_s, long long* stats, void* stream)
+{
+    if (n < 0 || b <= 0 || n % b || c_max <= 0 || ch <= 0 || num_cells <= 0
+            || row_stride <= 0 || plane_stride <= 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n == 0) return 0;
+    Prep p{n, b, num_cells, row_stride, plane_stride, cap, c_max, ch,
+           kid_age, life, {}};
+    for (int q = 0; q < R; ++q) p.offs[q] = offs[q];
+    block_prepare<<<static_cast<unsigned>(n / b), THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+        pos, age, w, tags, ids, skey, order, starts, p, f, iout, chunks, inv,
+        overflow_s, stats);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// D: the lifecycle of n slots.  fields (host, 16 pointers): in pos, vel, w,
+// age, life, out pos, vel, acc, w, age, life; then alive, parent in, alive,
+// parent out (bools, in bools) and the tags in and out (tags, 2); out may
+// be in.  acc_s (3, n), gmax_s, overflow_s in sorted order, read through
+// inv; uvec (n, 3).  consts (host): dt, particle_life, kid_age, max_dx,
+// max_v, explosion_speed, float32(1 / cell_size), cell_size.  Writes flags
+// (n,) uint8 (1 explode, 2 free) and tiles (ceil(n / 256), 2) int32.
+extern "C" int ps_nbody_lifecycle(
+    float* const* fields, unsigned char* const* bools, long long* const* tags,
+    const float* acc_s, const int* gmax_s, const unsigned char* overflow_s,
+    const int* inv, const float* uvec, long long n, const float* consts,
+    int g, unsigned char* flags, int* tiles, long long* stats, void* stream)
+{
+    if (n < 0 || g <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (n == 0) return 0;
+    float* fi[6] = {fields[0], fields[1], nullptr, fields[2], fields[3],
+                    fields[4]};
+    const State in = state(fi, bools, tags[0]);
+    const State out = state(fields + 5, bools + 2, tags[1]);
+    const Life c{n, consts[0], consts[1], consts[2], consts[3], consts[4],
+                 consts[5], Grid{g, g / 2, consts[6], consts[7]}};
+    nbody_lifecycle<<<blocks_for(n, THREADS), THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        in, out, acc_s, gmax_s, overflow_s, inv, uvec, c, flags, tiles,
+        stats);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// E: tiles (ceil(n / 256), 2) int32, D's counts, and their scan into cum
+// (the same shape, scratch); fields (host): pos, vel, acc, w, age, life;
+// bools: alive, parent; the state written in place.  src and tgt (e,)
+// int32 scratch; frame a device pointer to the frame (int64).
+extern "C" int ps_nbody_spawn(
+    float* const* fields, unsigned char* const* bools, long long* tag,
+    const float* fert, const long long* frame, const unsigned char* flags,
+    const int* tiles, int* cum, long long n, int e, float weight, int* src,
+    int* tgt, long long* stats, void* stream)
+{
+    if (n <= 0 || e <= 0 || frame == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int n_tiles = blocks_for(n, TILE);
+    spawn_scan<<<1, SCAN_THREADS, 0, st>>>(
+        reinterpret_cast<const int2*>(tiles), n_tiles,
+        reinterpret_cast<int2*>(cum));
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    spawn_rank<<<n_tiles, TILE, 0, st>>>(flags, cum, n, n_tiles, e, src, tgt,
+                                         stats);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    spawn_write<<<blocks_for(e, THREADS), THREADS, 0, st>>>(
+        state(fields, bools, tag), fert, frame, cum, n_tiles, e, weight, src,
+        tgt);
+    return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,658 @@
+"""The n-body frame's per-row work around the pair kernel in five kernels:
+wrapper of ``csrc/nbody_frame.cu``.
+
+Counterpart of XLA's fusions of the JAX package's jitted frame
+(``particlesystem_tpu/models/nbody.py::step_fields``, :271-331, with
+``impl="blocks"``; there is no Pallas kernel): everything the frame
+computes outside the pair kernel, the threefry draw and the sort.
+
+* A :func:`nbody_cells` — torus wrap, cell id and sort key ``alive ? cell
+  : num_cells`` (int32) of every slot (``ops/grid.wrap_positions``,
+  ``coords_to_cell``).
+* B :func:`cell_starts` — ``starts = searchsorted(skey,
+  arange(num_cells + 2))`` of the sorted keys, the largest cell and, on the
+  cubic grid, the largest chunk (``prepare``'s ``starts``/``counts``).
+* C :func:`block_prepare` — the rest of ``ops/neighbor_blocks.prepare``:
+  the snapshot, the overflow rows, the chunk table, and the inverse
+  permutation ``inv[order[r]] = r``.
+* D :func:`nbody_lifecycle` — ``unsort_outputs`` read through ``inv``, the
+  mine-side collision window and the first part of ``lifecycle_update``
+  (flags, clamped Euler, wrap, aging, explosion), writing the next state;
+  explode/free flags and their counts a tile of :data:`TILE` slots.
+* E :func:`nbody_spawn` — the spawn part of ``lifecycle_update``: the
+  i-th exploding parent (ascending slot) meets the i-th free slot for
+  ``i < k = min(n_child, n_free, e)``: on the card three kernels (the
+  scan of the tile counts, the ranks, the rows), counted as one launch.
+
+Each is a dispatcher: CUDA tensors launch the kernel (``*_cuda``, which
+counts its launches in ``.launches`` through ``utils/frame_graph``), CPU
+tensors take the plain version (``*_plain``); any other device raises.
+:func:`sort_and_prepare` runs the sort, B and C in the frame's order for
+every caller (``models/nbody.blocks_frame``, ``neighbor_blocks.prepare``,
+``api.NBodySimulation.profile_frame``).
+
+The statistics of a frame go into one int64 buffer (:func:`new_stats`,
+zeros): :data:`STATS` names its entries, the first eleven those of
+``models/nbody.NBodyStats`` in order; the chunk counters of B follow.
+D may write the state it reads (``out is state``), and E writes the state
+in place; see ``csrc/nbody_frame.cu`` for why that is safe.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import rng
+from ..core.config import GridSpec, NBodyConfig
+from ..core.state import FIELDS, ParticleState
+from ..utils.cuda_build import launch
+from ..utils.frame_graph import count_launch
+from .compact import rank_table, write_rows
+from .grid import coords_to_cell, wrap_positions
+from .neighbor import IMIN, as_f32, collision_okey
+from .rng_kernel import frame_on
+
+#: the statistics buffer's entries, in ``csrc/nbody_frame.cu``'s order
+STATS = ("n_alive", "n_age_deaths", "n_collision_kills", "n_overflow_kills",
+         "n_survivals", "n_spawned", "n_spawn_capped", "n_listed_dropped",
+         "max_cell_occupancy", "max_chunk_occupancy", "n_tail_alive",
+         "done_starts")
+STAT = {name: i for i, name in enumerate(STATS)}
+#: slots a spawn tile (D's block and E's rank block)
+TILE = 256
+#: chunk starts align to this many sorted rows
+ALIGN = 128
+_BIG = 1 << 30
+
+
+class Snapshot(NamedTuple):
+    """Cell-sorted neighbor snapshot: ``f`` float32 (7, N) rows x, y, z,
+    i1, i2, i3, w; ``i`` int32 (2, N) rows gid, cgid."""
+
+    f: torch.Tensor
+    i: torch.Tensor
+
+
+def new_stats(device, num_chunks: int = 0) -> torch.Tensor:
+    """A zeroed statistics buffer, with ``num_chunks`` chunk counters for
+    :func:`cell_starts`' largest chunk."""
+    return torch.zeros((len(STATS) + num_chunks,), dtype=torch.int64,
+                       device=device)
+
+
+def stencil_offsets(row_stride: int, plane_stride: int) -> list:
+    """The 9 cell-id offsets of a row's (i1, i3) stencil neighbours,
+    ascending."""
+    return sorted(o3 * plane_stride + o1 * row_stride
+                  for o3 in (-1, 0, 1) for o1 in (-1, 0, 1))
+
+
+def _add(stats, name: str, value) -> None:
+    stats[STAT[name]] += value
+
+
+def _set(stats, name: str, value) -> None:
+    stats[STAT[name]] = value
+
+
+# --- checks and launch ----------------------------------------------------------
+
+def _cuda_device(t: torch.Tensor, who) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{who.__name__} needs CUDA tensors, got {t.device}")
+    return t.device
+
+
+def _check(dev, t: torch.Tensor, dtype, shape, what: str) -> None:
+    if (t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous {dtype} "
+                         f"{tuple(shape)} on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _check_stats(dev, stats, num_chunks: int = 0) -> None:
+    if (stats.device != dev or stats.dtype != torch.int64 or stats.dim() != 1
+            or stats.shape[0] < len(STATS) + num_chunks
+            or not stats.is_contiguous()):
+        raise ValueError(f"stats must be new_stats(device, {num_chunks}), "
+                         f"got {stats.dtype} {tuple(stats.shape)}")
+
+
+def _check_state(dev, st: ParticleState, n: int, what: str) -> None:
+    for f in FIELDS:
+        t = getattr(st, f)
+        shape = (n, 3) if f in ("pos", "vel", "acc") else (n,)
+        dtype = (torch.bool if f in ("alive", "parent") else
+                 torch.int64 if f == "tag" else torch.float32)
+        _check(dev, t, dtype, shape, f"{what}.{f}")
+
+
+def _launch(name: str, dev, *args) -> None:
+    err = launch(name, dev, *args)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _dispatch(t: torch.Tensor, cuda_fn, plain_fn):
+    if t.device.type == "cuda":
+        return cuda_fn
+    if t.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"no n-body frame kernel for device {t.device}")
+
+
+# --- A: cells ---------------------------------------------------------------------
+
+def nbody_cells_plain(pos: torch.Tensor, alive: torch.Tensor,
+                      grid: GridSpec) -> torch.Tensor:
+    """Plain version of A: the sort key (N,) int32 of every slot."""
+    cell = coords_to_cell(wrap_positions(pos, grid)[1], grid)
+    return torch.where(alive, cell, grid.num_cells).to(torch.int32)
+
+
+def nbody_cells_cuda(pos: torch.Tensor, alive: torch.Tensor,
+                     grid: GridSpec) -> torch.Tensor:
+    """Launch ``ps_nbody_cells``; same contract as the plain version."""
+    dev = _cuda_device(pos, nbody_cells_cuda)
+    n = pos.shape[0]
+    _check(dev, pos, torch.float32, (n, 3), "pos")
+    _check(dev, alive, torch.bool, (n,), "alive")
+    key = torch.empty((n,), dtype=torch.int32, device=dev)
+    _launch("ps_nbody_cells", dev, pos.data_ptr(), alive.data_ptr(), n,
+            grid.grid_dim, as_f32(1.0 / grid.cell_size),
+            as_f32(grid.cell_size), key.data_ptr())
+    count_launch(nbody_cells_cuda)
+    return key
+
+
+nbody_cells_cuda.launches = 0
+
+
+def nbody_cells(pos, alive, grid: GridSpec) -> torch.Tensor:
+    return _dispatch(pos, nbody_cells_cuda, nbody_cells_plain)(pos, alive,
+                                                                grid)
+
+
+# --- B: cell starts ---------------------------------------------------------------
+
+def cell_starts_plain(skey: torch.Tensor, num_cells: int,
+                      stats: torch.Tensor, grid: GridSpec | None = None
+                      ) -> torch.Tensor:
+    """Plain version of B: ``starts`` (num_cells + 2,) int32 of the sorted
+    keys; ``stats``' largest cell and, given the cubic ``grid``, its
+    largest chunk."""
+    dev = skey.device
+    starts = torch.searchsorted(
+        skey, torch.arange(num_cells + 2, dtype=torch.int32, device=dev),
+        out_int32=True)
+    counts = (starts[1:num_cells + 1] - starts[:num_cells]).to(torch.int64)
+    _set(stats, "max_cell_occupancy", counts.max())
+    if grid is not None:
+        cd, cf = grid.chunk_dim, grid.chunk_factor
+        per_cell = counts.reshape(cf, cd, cf, cd, cf, cd)
+        _set(stats, "max_chunk_occupancy", per_cell.sum(dim=(1, 3, 5)).max())
+    return starts
+
+
+def cell_starts_cuda(skey: torch.Tensor, num_cells: int,
+                     stats: torch.Tensor, grid: GridSpec | None = None
+                     ) -> torch.Tensor:
+    """Launch ``ps_cell_starts``; same contract as the plain version
+    (``stats`` zeroed, as :func:`new_stats` makes it)."""
+    dev = _cuda_device(skey, cell_starts_cuda)
+    n = skey.shape[0]
+    _check(dev, skey, torch.int32, (n,), "skey")
+    if grid is not None and grid.num_cells != num_cells:
+        raise ValueError(f"{num_cells} cells is not the grid's "
+                         f"{grid.num_cells}")
+    _check_stats(dev, stats, 0 if grid is None else grid.num_chunks)
+    starts = torch.empty((num_cells + 2,), dtype=torch.int32, device=dev)
+    g, cd, cf = ((0, 0, 0) if grid is None else
+                 (grid.grid_dim, grid.chunk_dim, grid.chunk_factor))
+    _launch("ps_cell_starts", dev, skey.data_ptr(), n, num_cells,
+            starts.data_ptr(), stats.data_ptr(), g, cd, cf)
+    count_launch(cell_starts_cuda)
+    return starts
+
+
+cell_starts_cuda.launches = 0
+
+
+def cell_starts(skey, num_cells: int, stats, grid: GridSpec | None = None):
+    return _dispatch(skey, cell_starts_cuda, cell_starts_plain)(
+        skey, num_cells, stats, grid)
+
+
+# --- C: block prepare -------------------------------------------------------------
+
+def _layout(cfg: NBodyConfig, n: int, b: int, dims):
+    if n % b:
+        raise ValueError(f"{n} rows is not a multiple of the block size {b}")
+    g = cfg.grid.grid_dim
+    d1, d2, d3 = dims or (g, g, g)
+    return d1 * d2 * d3, d2, d1 * d2
+
+
+def block_prepare_plain(pos0, age0, w0, skey, order, starts,
+                        cfg: NBodyConfig, tags, stats, c_max: int, ch: int,
+                        b: int, dims=None, ids=None):
+    """Plain version of C: (snap :class:`Snapshot`, chunks (NB, c_max, 4)
+    int32 — columns (aligned_start, lo, hi, n_active) —, inv (N,) int32,
+    overflow_s (N,) bool) of the rows sorted by ``skey`` through ``order``;
+    ``stats``' dropped chunks.  ``dims``, ``ids`` as in
+    ``ops/neighbor_blocks.prepare``."""
+    n = skey.shape[0]
+    num_cells, row_stride, plane_stride = _layout(cfg, n, b, dims)
+    dev = skey.device
+    f32 = torch.float32
+    skey = skey.to(torch.int64)
+    starts = starts.to(torch.int64)
+
+    iot = torch.arange(n, dtype=torch.int64, device=dev)
+    # neighbor-side collision window's upper edge (age <= life); the
+    # kid/dead/overflow gates ride the out-of-band coordinates below
+    cg_pre = torch.where(age0 <= as_f32(cfg.particle_life),
+                         collision_okey(tags), IMIN).to(torch.int32)
+    spos = pos0[order]
+    sage = age0[order]
+    # in-cell rank: distance to the first sorted row of the row's key
+    # (``starts`` holds it for every key, and no key exceeds num_cells)
+    rank = iot - starts[skey]
+
+    in_grid = skey < num_cells
+    valid_s = in_grid & (rank < cfg.cell_capacity)
+    overflow_s = in_grid & (rank >= cfg.cell_capacity)
+
+    # out-of-band bands for invalid and kid rows (see neighbor_blocks)
+    coord_ok = valid_s & (sage >= as_f32(cfg.kid_age))
+    base = torch.where(valid_s, -10.0, -4194304.0).to(f32)
+    bad_a = base - (2 * (iot % (1 << 19))).to(f32)
+    bad_b = base - (2 * (iot % ((1 << 19) - 1))).to(f32)
+    i3q = skey // plane_stride
+    remq = skey % plane_stride
+    i1s = torch.where(coord_ok, (remq // row_stride).to(f32), bad_a)
+    i2s = torch.where(coord_ok, (remq % row_stride).to(f32), bad_b)
+    i3s = torch.where(coord_ok, i3q.to(f32), bad_a)
+    snap = Snapshot(
+        f=torch.stack([spos[:, 0], spos[:, 1], spos[:, 2], i1s, i2s, i3s,
+                       w0[order]]),
+        i=torch.stack([order.to(torch.int32) if ids is None
+                       else ids.to(torch.int32)[order], cg_pre[order]]))
+
+    # ---- per-block neighbor ranges --------------------------------------
+    # A block's valid sorted cells are the contiguous [cmin, cmax].  For
+    # each of the 9 stencil offsets (d1, d3) the needed cells are the
+    # linear range [cmin-1, cmax+1] + d3*G^2 + d1*G; row-edge spill is
+    # rejected by the per-pair stencil test.  Offsets ascend, so clipping
+    # each range's start past the previous range's end keeps the ranges
+    # disjoint (wide blocks on sparse grids would overlap them and count
+    # neighbors twice) while keeping their union.
+    nb = n // b
+    cmin = torch.where(valid_s, skey, _BIG).view(nb, b).amin(dim=1)
+    cmax = torch.where(valid_s, skey, -_BIG).view(nb, b).amax(dim=1)
+    empty = cmax < cmin
+
+    offs = stencil_offsets(row_stride, plane_stride)
+    prev_hi = torch.full_like(cmin, -_BIG)
+    lo_cols, hi_cols = [], []
+    for off in offs:                                     # sequential dedup
+        lo_cols.append(torch.maximum(cmin - 1 + off, prev_hi + 1))
+        hi_cols.append(cmax + 1 + off)
+        prev_hi = torch.maximum(prev_hi, hi_cols[-1])
+    lo = torch.stack(lo_cols, dim=1)                     # (NB, 9)
+    hi = torch.stack(hi_cols, dim=1)
+
+    r_start = starts[lo.clamp(0, num_cells)]
+    r_end = starts[(hi + 1).clamp(0, num_cells)]
+    count = torch.where((~empty)[:, None] & (r_end > r_start),
+                        r_end - r_start, 0)
+
+    # ---- flatten ranges into a per-block chunk table -------------------
+    astart = (r_start // ALIGN) * ALIGN
+    lead = r_start - astart
+    tot = lead + count                                   # (NB, 9)
+    nch = torch.where(count > 0, (tot + ch - 1) // ch, 0)
+    cum = torch.cumsum(nch, dim=1)                       # inclusive
+    total = cum[:, -1]
+    _add(stats, "n_listed_dropped", (total - c_max).clamp(min=0).sum())
+
+    last = len(offs) - 1
+    j = torch.arange(c_max, device=dev).expand(nb, c_max).contiguous()
+    r_of = torch.searchsorted(cum, j, right=True)        # range of chunk j
+    take = lambda a: torch.gather(a, 1, r_of.clamp(max=last))
+    first_chunk = torch.where(
+        r_of > 0, torch.gather(cum, 1, (r_of - 1).clamp(0, last)), 0)
+    c_in = j - first_chunk                               # chunk within range
+    nact = total.clamp(max=c_max)
+    valid_j = j < nact[:, None]
+    astart_j = torch.where(valid_j, take(astart) + c_in * ch, 0)
+    lo_j = torch.where(valid_j, (take(lead) - c_in * ch).clamp(0, ch), 0)
+    hi_j = torch.where(valid_j, (take(tot) - c_in * ch).clamp(0, ch), 0)
+    chunks = torch.stack([astart_j, lo_j, hi_j,
+                          nact[:, None].expand(nb, c_max)],
+                         dim=-1).to(torch.int32).contiguous()
+
+    inv = torch.empty((n,), dtype=torch.int32, device=dev)
+    inv[order] = iot.to(torch.int32)
+    return snap, chunks, inv, overflow_s
+
+
+def block_prepare_cuda(pos0, age0, w0, skey, order, starts,
+                       cfg: NBodyConfig, tags, stats, c_max: int, ch: int,
+                       b: int, dims=None, ids=None):
+    """Launch ``ps_block_prepare``, one CTA a block of ``b`` sorted rows;
+    same contract as the plain version."""
+    dev = _cuda_device(skey, block_prepare_cuda)
+    n = skey.shape[0]
+    num_cells, row_stride, plane_stride = _layout(cfg, n, b, dims)
+    if c_max <= 0 or ch <= 0:
+        raise ValueError(f"unsupported chunk budget c_max={c_max} ch={ch}")
+    _check(dev, pos0, torch.float32, (n, 3), "pos0")
+    _check(dev, age0, torch.float32, (n,), "age0")
+    _check(dev, w0, torch.float32, (n,), "w0")
+    _check(dev, tags, torch.int64, (n,), "tags")
+    _check(dev, skey, torch.int32, (n,), "skey")
+    _check(dev, order, torch.int64, (n,), "order")
+    _check(dev, starts, torch.int32, (num_cells + 2,), "starts")
+    _check_stats(dev, stats)
+    if ids is not None:
+        ids = ids.to(torch.int32).contiguous()
+        _check(dev, ids, torch.int32, (n,), "ids")
+    f = torch.empty((7, n), dtype=torch.float32, device=dev)
+    i = torch.empty((2, n), dtype=torch.int32, device=dev)
+    chunks = torch.empty((n // b, c_max, 4), dtype=torch.int32, device=dev)
+    inv = torch.empty((n,), dtype=torch.int32, device=dev)
+    overflow_s = torch.empty((n,), dtype=torch.bool, device=dev)
+    offs = np.asarray(stencil_offsets(row_stride, plane_stride), np.int32)
+    _launch("ps_block_prepare", dev, pos0.data_ptr(), age0.data_ptr(),
+            w0.data_ptr(), tags.data_ptr(),
+            None if ids is None else ids.data_ptr(), skey.data_ptr(),
+            order.data_ptr(), starts.data_ptr(), n, b, num_cells,
+            row_stride, plane_stride, offs.ctypes.data, cfg.cell_capacity,
+            as_f32(cfg.kid_age), as_f32(cfg.particle_life), c_max, ch,
+            f.data_ptr(), i.data_ptr(), chunks.data_ptr(), inv.data_ptr(),
+            overflow_s.data_ptr(), stats.data_ptr())
+    count_launch(block_prepare_cuda)
+    return Snapshot(f, i), chunks, inv, overflow_s
+
+
+block_prepare_cuda.launches = 0
+
+
+def block_prepare(pos0, age0, w0, skey, order, starts, cfg: NBodyConfig,
+                  tags, stats, c_max: int, ch: int, b: int, dims=None,
+                  ids=None):
+    return _dispatch(skey, block_prepare_cuda, block_prepare_plain)(
+        pos0, age0, w0, skey, order, starts, cfg, tags, stats, c_max, ch, b,
+        dims=dims, ids=ids)
+
+
+class Prepared(NamedTuple):
+    """The pair kernel's inputs and what D reads beside them, as
+    :func:`sort_and_prepare` returns them."""
+
+    snap: Snapshot
+    chunks: torch.Tensor       # (NB, c_max, 4) int32
+    inv: torch.Tensor          # (N,) int32, slot -> sorted row
+    overflow_s: torch.Tensor   # (N,) bool, sorted rows
+    order: torch.Tensor        # (N,) int64, sorted row -> slot
+    starts: torch.Tensor       # (num_cells + 2,) int32
+    stats: torch.Tensor        # the frame's statistics buffer
+
+
+def sort_and_prepare(key, pos0, age0, w0, tags, cfg: NBodyConfig,
+                     c_max: int, ch: int, b: int, grid: GridSpec | None = None,
+                     dims=None, ids=None) -> Prepared:
+    """The stable sort of the int32 sort keys ``key`` (A's, or ``alive ?
+    cell : num_cells`` of the caller's cells), then B and C: the pair
+    kernel's inputs.  The statistics buffer is made here, zeroed, with the
+    chunk counters B needs for the largest chunk of the cubic ``grid``
+    (none without it); D and E add to it.  ``dims``, ``ids`` as in
+    ``ops/neighbor_blocks.prepare``."""
+    num_cells = _layout(cfg, key.shape[0], b, dims)[0]
+    # int32 keys: the same stable order as int64 ones in half the passes
+    skey, order = torch.sort(key, stable=True)
+    stats = new_stats(key.device, 0 if grid is None else grid.num_chunks)
+    starts = cell_starts(skey, num_cells, stats, grid)
+    snap, chunks, inv, overflow_s = block_prepare(
+        pos0, age0, w0, skey, order, starts, cfg, tags, stats, c_max, ch, b,
+        dims=dims, ids=ids)
+    return Prepared(snap, chunks, inv, overflow_s, order, starts, stats)
+
+
+# --- D: lifecycle -----------------------------------------------------------------
+
+def lifecycle_flags(state: ParticleState, pos_w, overflow, acc, kill, touch,
+                    uvec, cfg: NBodyConfig):
+    """The lifecycle flags, clamped integration and explosion of every
+    slot, given the neighbor pass's slot-order results (the first part of
+    ``models/nbody.lifecycle_update``).  Returns (the next state before
+    the spawn, explode, {n_age_deaths, n_collision_kills,
+    n_overflow_kills, n_survivals})."""
+    dt = as_f32(cfg.dt)
+    alive1 = state.alive & ~overflow
+    age0 = state.age
+    die_age = alive1 & (age0 > as_f32(cfg.particle_life))
+    die_coll = alive1 & ~die_age & kill
+    dead_now = die_age | die_coll | overflow
+    survive = alive1 & ~die_age & ~die_coll & touch
+    normal = alive1 & ~die_age & ~die_coll & ~survive
+
+    # --- integrate (clamped Euler + torus wrap, particleSystem.cpp:1267-1302)
+    dx = state.vel * dt + 0.5 * acc * dt * dt
+    dx = torch.clamp(dx, -cfg.max_dx, cfg.max_dx)
+    newpos, _ = wrap_positions(state.pos + dx, cfg.grid)
+    v1 = torch.clamp(state.vel + acc * dt, -cfg.max_v, cfg.max_v)
+    age1 = age0 + dt
+
+    nm = normal[:, None]
+    dm = dead_now[:, None]
+    sm = survive[:, None]
+    pos = torch.where(nm, newpos, torch.where(dm, 0.0, pos_w))
+    vel = torch.where(nm, v1, torch.where(dm | sm, 0.0, state.vel))
+    accf = torch.where(nm, acc, 0.0)
+    age = torch.where(normal, age1,
+                      torch.where(dead_now | survive, 0.0, age0))
+    w = torch.where(dead_now, 0.0, state.w)
+    lifef = torch.where(dead_now, 0.0, state.life)
+    parent = torch.where(dead_now | survive, False, state.parent)
+    alive2 = alive1 & ~dead_now
+
+    # --- explosion reproduction (particleSystem.cpp:1307-1333) -----------
+    explode = normal & (age1 >= state.life) & ~state.parent
+    parent = parent | explode
+    evel = uvec * as_f32(cfg.explosion_speed)
+    vel = torch.where(explode[:, None], evel, vel)
+
+    count = lambda m: m.sum(dtype=torch.int64)
+    nxt = ParticleState(pos=pos, vel=vel, acc=accf, w=w, age=age, life=lifef,
+                        alive=alive2, parent=parent, tag=state.tag)
+    return nxt, explode, dict(n_age_deaths=count(die_age),
+                              n_collision_kills=count(die_coll),
+                              n_overflow_kills=count(overflow),
+                              n_survivals=count(survive))
+
+
+def _tile_counts(explode, free) -> torch.Tensor:
+    n = explode.shape[0]
+    both = torch.stack([explode, free], dim=1).to(torch.int32)
+    pad = (-n) % TILE
+    both = torch.cat([both, both.new_zeros((pad, 2))])
+    return both.view(-1, TILE, 2).sum(dim=1, dtype=torch.int32)
+
+
+def _copy_into(out: ParticleState, st: ParticleState) -> None:
+    for f in FIELDS:
+        dst, src = getattr(out, f), getattr(st, f)
+        if dst is not src:
+            dst.copy_(src)
+
+
+def nbody_lifecycle_plain(state: ParticleState, out: ParticleState, acc_s,
+                          gmax_s, overflow_s, inv, uvec, cfg: NBodyConfig,
+                          stats):
+    """Plain version of D: the pair kernel's sorted outputs (acc_s (3, N),
+    gmax_s, overflow_s) read through ``inv``, the mine-side collision age
+    window, :func:`lifecycle_flags`; the next state (before the spawn)
+    written into ``out`` (which may be ``state``), ``stats``' counts.
+    Returns (flags (N,) uint8, 1 explode and 2 free; tiles (ceil(N/TILE),
+    2) int32, the explode and free counts of each tile)."""
+    rows = inv.to(torch.int64)
+    acc = acc_s.T[rows]
+    gmax = gmax_s[rows]
+    overflow = overflow_s[rows]
+    age0 = state.age
+    win = (age0 >= as_f32(cfg.kid_age)) & (age0 <= as_f32(cfg.particle_life))
+    kill = (gmax > collision_okey(state.tag)) & win
+    touch = (gmax > IMIN) & win
+    pos_w, _ = wrap_positions(state.pos, cfg.grid)
+    nxt, explode, counts = lifecycle_flags(state, pos_w, overflow, acc, kill,
+                                           touch, uvec, cfg)
+    _copy_into(out, nxt)
+    for name, v in counts.items():
+        _add(stats, name, v)
+    _add(stats, "n_alive", nxt.alive.sum(dtype=torch.int64))
+    free = ~nxt.alive
+    flags = explode.to(torch.uint8) | (free.to(torch.uint8) << 1)
+    return flags, _tile_counts(explode, free)
+
+
+def nbody_lifecycle_cuda(state: ParticleState, out: ParticleState, acc_s,
+                         gmax_s, overflow_s, inv, uvec, cfg: NBodyConfig,
+                         stats):
+    """Launch ``ps_nbody_lifecycle``, one thread a slot; same contract as
+    the plain version."""
+    dev = _cuda_device(state.pos, nbody_lifecycle_cuda)
+    n = state.slots
+    _check_state(dev, state, n, "state")
+    _check_state(dev, out, n, "out")
+    _check(dev, acc_s, torch.float32, (3, n), "acc_s")
+    _check(dev, gmax_s, torch.int32, (n,), "gmax_s")
+    _check(dev, overflow_s, torch.bool, (n,), "overflow_s")
+    _check(dev, inv, torch.int32, (n,), "inv")
+    _check(dev, uvec, torch.float32, (n, 3), "uvec")
+    _check_stats(dev, stats)
+    flags = torch.empty((n,), dtype=torch.uint8, device=dev)
+    tiles = torch.empty((-(-n // TILE), 2), dtype=torch.int32, device=dev)
+    g = cfg.grid
+    consts = np.asarray([cfg.dt, cfg.particle_life, cfg.kid_age, cfg.max_dx,
+                         cfg.max_v, cfg.explosion_speed, 1.0 / g.cell_size,
+                         g.cell_size], np.float32)
+    fields = (ctypes.c_void_p * 11)(*(t.data_ptr() for t in (
+        state.pos, state.vel, state.w, state.age, state.life, out.pos,
+        out.vel, out.acc, out.w, out.age, out.life)))
+    bools = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in (
+        state.alive, state.parent, out.alive, out.parent)))
+    tags = (ctypes.c_void_p * 2)(state.tag.data_ptr(), out.tag.data_ptr())
+    _launch("ps_nbody_lifecycle", dev, ctypes.addressof(fields),
+            ctypes.addressof(bools), ctypes.addressof(tags), acc_s.data_ptr(),
+            gmax_s.data_ptr(), overflow_s.data_ptr(), inv.data_ptr(),
+            uvec.data_ptr(), n, consts.ctypes.data, g.grid_dim,
+            flags.data_ptr(), tiles.data_ptr(), stats.data_ptr())
+    count_launch(nbody_lifecycle_cuda)
+    return flags, tiles
+
+
+nbody_lifecycle_cuda.launches = 0
+
+
+def nbody_lifecycle(state, out, acc_s, gmax_s, overflow_s, inv, uvec,
+                    cfg: NBodyConfig, stats):
+    return _dispatch(state.pos, nbody_lifecycle_cuda, nbody_lifecycle_plain)(
+        state, out, acc_s, gmax_s, overflow_s, inv, uvec, cfg, stats)
+
+
+# --- E: spawn ---------------------------------------------------------------------
+
+def spawn_children(st: ParticleState, explode, fert, frame,
+                   cfg: NBodyConfig):
+    """The spawn part of ``models/nbody.lifecycle_update`` on the state
+    :func:`lifecycle_flags` returns, whose exploding parents hold their
+    explosion velocity: the i-th exploding parent (ascending slot) fills
+    the i-th free slot (ascending), for i < k = min(n_child, n_free,
+    budget); children past the budget are dropped (mirrored by the
+    oracle).  Returns (the next state, k, n_child)."""
+    n = st.slots
+    e = min(cfg.max_spawns_per_frame, n)
+    free = ~st.alive
+    n_child = explode.sum(dtype=torch.int64)
+    k = torch.minimum(n_child, free.sum(dtype=torch.int64)).clamp(max=e)
+    ok = torch.arange(e, device=n_child.device) < k
+    src = rank_table(explode, e).clamp(max=n - 1)
+    tgt = torch.where(ok, rank_table(free, e), n)
+
+    child_tag = rng.tag_mix(st.tag[src], frame)
+    out = ParticleState(
+        pos=write_rows(st.pos, tgt, st.pos[src]),
+        vel=write_rows(st.vel, tgt, -st.vel[src]),
+        acc=write_rows(st.acc, tgt, 0.0),
+        w=write_rows(st.w, tgt, as_f32(cfg.weight)),
+        age=write_rows(st.age, tgt, 0.0),
+        life=write_rows(st.life, tgt, fert[src]),
+        alive=write_rows(st.alive, tgt, True),
+        parent=write_rows(st.parent, tgt, False),
+        tag=write_rows(st.tag, tgt, child_tag))
+    return out, k, n_child
+
+
+def nbody_spawn_plain(out: ParticleState, fert, frame, flags, tiles,
+                      cfg: NBodyConfig, stats) -> None:
+    """Plain version of E: :func:`spawn_children` of the exploding slots
+    of ``flags`` (D's), written into ``out`` in place; ``stats``' spawned,
+    capped and alive counts.  ``tiles`` is what the kernel ranks by."""
+    explode = (flags & 1).bool()
+    nxt, k, n_child = spawn_children(out, explode, fert, frame, cfg)
+    _copy_into(out, nxt)
+    e = min(cfg.max_spawns_per_frame, out.slots)
+    _set(stats, "n_spawned", k)
+    # children dropped for lack of free slots in the operated width
+    # (budget drops are excluded by the min with e)
+    _set(stats, "n_spawn_capped", torch.clamp(n_child, max=e) - k)
+    _add(stats, "n_alive", k)
+
+
+def nbody_spawn_cuda(out: ParticleState, fert, frame, flags, tiles,
+                     cfg: NBodyConfig, stats) -> None:
+    """Launch ``ps_nbody_spawn``: three kernels (the scan of the tile
+    counts, the ranks, the rows; counted as one launch), the frame read on
+    the device (``rng_kernel.frame_on``); same contract as the plain
+    version."""
+    dev = _cuda_device(out.pos, nbody_spawn_cuda)
+    n = out.slots
+    _check_state(dev, out, n, "out")
+    _check(dev, fert, torch.float32, (n,), "fert")
+    _check(dev, flags, torch.uint8, (n,), "flags")
+    _check(dev, tiles, torch.int32, (-(-n // TILE), 2), "tiles")
+    _check_stats(dev, stats)
+    if n == 0:
+        return
+    e = min(cfg.max_spawns_per_frame, n)
+    cum = torch.empty_like(tiles)
+    src = torch.empty((e,), dtype=torch.int32, device=dev)
+    tgt = torch.empty((e,), dtype=torch.int32, device=dev)
+    frame = frame_on(frame, dev)
+    fields = (ctypes.c_void_p * 6)(*(t.data_ptr() for t in (
+        out.pos, out.vel, out.acc, out.w, out.age, out.life)))
+    bools = (ctypes.c_void_p * 2)(out.alive.data_ptr(),
+                                  out.parent.data_ptr())
+    _launch("ps_nbody_spawn", dev, ctypes.addressof(fields),
+            ctypes.addressof(bools), out.tag.data_ptr(), fert.data_ptr(),
+            frame.data_ptr(), flags.data_ptr(), tiles.data_ptr(),
+            cum.data_ptr(), n, e,
+            as_f32(cfg.weight), src.data_ptr(), tgt.data_ptr(),
+            stats.data_ptr())
+    count_launch(nbody_spawn_cuda)
+
+
+nbody_spawn_cuda.launches = 0
+
+
+def nbody_spawn(out, fert, frame, flags, tiles, cfg: NBodyConfig,
+                stats) -> None:
+    return _dispatch(out.pos, nbody_spawn_cuda, nbody_spawn_plain)(
+        out, fert, frame, flags, tiles, cfg, stats)

@@ -52,7 +52,7 @@ more than ``c_max`` chunks drop the excess, and the count comes back as
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -60,28 +60,24 @@ import torch
 from ..core.config import NBodyConfig
 from ..utils.cuda_build import launch
 from ..utils.frame_graph import count_launch
+from . import frame_kernels as fk
+from .frame_kernels import Snapshot
 from .neighbor import IMIN, as_f32, collision_okey
 
 B = 512        # block rows per kernel CTA
 CH = 1024      # columns per listed chunk
-R_MAX = 24     # neighbor-range slots per block (9 are used)
 C_MAX = 48     # chunk slots per block
 PLAIN_PAIRS = 1 << 24  # pair elements per step of the plain version
-_BIG = 1 << 30
-
-
-class Snapshot(NamedTuple):
-    """Cell-sorted neighbor snapshot: ``f`` float32 (7, N) rows x, y, z,
-    i1, i2, i3, w; ``i`` int32 (2, N) rows gid, cgid."""
-
-    f: torch.Tensor
-    i: torch.Tensor
 
 
 def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, tags,
             c_max: int | None = None, ch: int | None = None,
             b: int | None = None, dims=None, ids=None):
-    """Sort by cell and build the kernel inputs.
+    """Sort by cell and build the kernel inputs: the sort key ``alive ?
+    cell : num_cells`` (int32) through
+    :func:`~.frame_kernels.sort_and_prepare` (the stable sort, then B and
+    C: the CUDA kernels for CUDA tensors and their plain versions for CPU
+    ones).
 
     ``tags`` are the persistent particle tags whose :func:`collision_okey`
     orders kill/survive.  ``dims = (d1, d2, d3)`` generalises the cubic
@@ -105,108 +101,13 @@ def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, tags,
     g = cfg.grid.grid_dim
     d1, d2, d3 = dims or (g, g, g)
     num_cells = d1 * d2 * d3
-    row_stride, plane_stride = d2, d1 * d2
-    n = cell.shape[0]
-    if n % b:
-        raise ValueError(f"{n} rows is not a multiple of the block size {b}")
-    dev = cell.device
-    f32 = torch.float32
-
-    iot = torch.arange(n, dtype=torch.int64, device=dev)
-    key = torch.where(alive, cell.to(torch.int64), num_cells)
-    # neighbor-side collision window's upper edge (age <= life); the
-    # kid/dead/overflow gates ride the out-of-band coordinates below
-    cg_pre = torch.where(age0 <= as_f32(cfg.particle_life),
-                         collision_okey(tags), IMIN).to(torch.int32)
-
-    skey, order = torch.sort(key, stable=True)
-    spos = pos0[order]
-    sage = age0[order]
-
-    starts = torch.searchsorted(
-        skey, torch.arange(num_cells + 2, dtype=torch.int64, device=dev))
-    counts = starts[1:] - starts[:-1]                # (num_cells + 1,)
-    # in-cell rank: distance to the first sorted row of the row's key
-    # (``starts`` holds it for every key, and no key exceeds num_cells)
-    rank = iot - starts[skey]
-
-    in_grid = skey < num_cells
-    valid_s = in_grid & (rank < cfg.cell_capacity)
-    overflow_s = in_grid & (rank >= cfg.cell_capacity)
-
-    # out-of-band bands for invalid and kid rows (see module docstring)
-    coord_ok = valid_s & (sage >= as_f32(cfg.kid_age))
-    base = torch.where(valid_s, -10.0, -4194304.0).to(f32)
-    bad_a = base - (2 * (iot % (1 << 19))).to(f32)
-    bad_b = base - (2 * (iot % ((1 << 19) - 1))).to(f32)
-    i3q = skey // plane_stride
-    remq = skey % plane_stride
-    i1s = torch.where(coord_ok, (remq // row_stride).to(f32), bad_a)
-    i2s = torch.where(coord_ok, (remq % row_stride).to(f32), bad_b)
-    i3s = torch.where(coord_ok, i3q.to(f32), bad_a)
-    snap = Snapshot(
-        f=torch.stack([spos[:, 0], spos[:, 1], spos[:, 2], i1s, i2s, i3s,
-                       w0[order]]),
-        i=torch.stack([order.to(torch.int32) if ids is None
-                       else ids.to(torch.int32)[order], cg_pre[order]]))
-
-    # ---- per-block neighbor ranges --------------------------------------
-    # A block's valid sorted cells are the contiguous [cmin, cmax].  For
-    # each of the 9 stencil offsets (d1, d3) the needed cells are the
-    # linear range [cmin-1, cmax+1] + d3*G^2 + d1*G; row-edge spill is
-    # rejected by the per-pair stencil test.  Offsets ascend, so clipping
-    # each range's start past the previous range's end keeps the ranges
-    # disjoint (wide blocks on sparse grids would overlap them and count
-    # neighbors twice) while keeping their union.
-    nb = n // b
-    cmin = torch.where(valid_s, skey, _BIG).view(nb, b).amin(dim=1)
-    cmax = torch.where(valid_s, skey, -_BIG).view(nb, b).amax(dim=1)
-    empty = cmax < cmin
-
-    offs = sorted(o3 * plane_stride + o1 * row_stride
-                  for o3 in (-1, 0, 1) for o1 in (-1, 0, 1))
-    prev_hi = torch.full_like(cmin, -_BIG)
-    lo_cols, hi_cols = [], []
-    for off in offs:                                     # sequential dedup
-        lo_cols.append(torch.maximum(cmin - 1 + off, prev_hi + 1))
-        hi_cols.append(cmax + 1 + off)
-        prev_hi = torch.maximum(prev_hi, hi_cols[-1])
-    pad = [torch.zeros_like(cmin)] * (R_MAX - len(offs))
-    lo = torch.stack(lo_cols + pad, dim=1)               # (NB, R_MAX)
-    hi = torch.stack(hi_cols + [z - 1 for z in pad], dim=1)
-    r_idx = torch.arange(R_MAX, device=dev)[None, :]
-    active = (~empty)[:, None] & (r_idx < len(offs))
-
-    r_start = starts[lo.clamp(0, num_cells)]
-    r_end = starts[(hi + 1).clamp(0, num_cells)]
-    count = torch.where(active & (r_end > r_start), r_end - r_start, 0)
-
-    # ---- flatten ranges into a per-block chunk table -------------------
-    astart = (r_start // 128) * 128
-    lead = r_start - astart
-    tot = lead + count                                   # (NB, R_MAX)
-    nch = torch.where(count > 0, (tot + ch - 1) // ch, 0)
-    cum = torch.cumsum(nch, dim=1)                       # inclusive
-    total = cum[:, -1]
-    n_dropped = (total - c_max).clamp(min=0).sum()
-
-    j = torch.arange(c_max, device=dev).expand(nb, c_max).contiguous()
-    r_of = torch.searchsorted(cum, j, right=True)        # range of chunk j
-    take = lambda a: torch.gather(a, 1, r_of.clamp(max=R_MAX - 1))
-    first_chunk = torch.where(
-        r_of > 0, torch.gather(cum, 1, (r_of - 1).clamp(0, R_MAX - 1)), 0)
-    c_in = j - first_chunk                               # chunk within range
-    nact = total.clamp(max=c_max)
-    valid_j = j < nact[:, None]
-    astart_j = torch.where(valid_j, take(astart) + c_in * ch, 0)
-    lo_j = torch.where(valid_j, (take(lead) - c_in * ch).clamp(0, ch), 0)
-    hi_j = torch.where(valid_j, (take(tot) - c_in * ch).clamp(0, ch), 0)
-    chunks = torch.stack([astart_j, lo_j, hi_j,
-                          nact[:, None].expand(nb, c_max)],
-                         dim=-1).to(torch.int32).contiguous()
-
-    max_occ = counts[:num_cells].max()
-    return snap, chunks, order, overflow_s, max_occ, counts, n_dropped
+    key = torch.where(alive, cell.to(torch.int32), num_cells)
+    p = fk.sort_and_prepare(key, pos0, age0, w0, tags, cfg, c_max, ch, b,
+                            dims=dims, ids=ids)
+    counts = (p.starts[1:] - p.starts[:-1]).to(torch.int64)
+    return (p.snap, p.chunks, p.order, p.overflow_s,
+            p.stats[fk.STAT["max_cell_occupancy"]], counts,
+            p.stats[fk.STAT["n_listed_dropped"]])
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,303 @@
+"""States that drive every branch of the n-body frame's kernels
+(``ops/frame_kernels.py``, ``csrc/nbody_frame.cu``), and the checks that
+hold each kernel to its plain version on them.
+
+* :func:`edge_states` — small states made with numpy from a seed: a spawn
+  burst over the per-frame budget, a container with no free slot, the
+  tags 0x80000000 and 0xFFFFFFFF among colliding and exploding particles,
+  cell-cap overflow rows beside all-dead blocks, and a 2-chunk budget
+  that drops chunks; :func:`dims_case` the decomposed step's inputs to
+  ``prepare``: a non-cubic grid, explicit ids and -1-id padding rows.
+* :func:`hold_kernels` — on a card, A-E each against its plain version on
+  the inputs one frame of a state gives it, bit for bit (every field,
+  mask, tag, flag, tile count and statistic), D and E both into a fresh
+  state and in place; :func:`hold_prepare` B and C on ``prepare``'s
+  inputs; :func:`hold_frames` whole frames of ``nbody.step`` against
+  :func:`plain_frame`, the frame composed of the plain versions.
+
+``chip_smoke.py`` (phase 15) runs the checks at full width and on these
+states; ``tests/test_torch_frame_kernels.py`` holds the plain versions to
+the JAX package on the same states.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.config import GridSpec, NBodyConfig
+from ..core.state import FIELDS, ParticleState, zero_state
+from ..models import nbody
+from ..ops import frame_kernels as fk
+from ..ops import neighbor_blocks as nbk
+
+#: the tags at the edges of the collision key and the child-tag mix
+EDGE_TAGS = (0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 0x80000001, 0)
+
+
+class EdgeState(NamedTuple):
+    name: str
+    cfg: NBodyConfig
+    state: ParticleState
+    frame: object          # a Python int or a 0-dim int64 on the device
+    c_max: int | None      # the chunk budget (None: the module's)
+
+
+def _cfg(**kw) -> NBodyConfig:
+    return NBodyConfig(grid=GridSpec(grid_dim=4, cell_size=5.0,
+                                     chunk_factor=2), **kw)
+
+
+def _state(n: int, slots: int, pos, age, life, tags, device,
+           parent=None, vel=None) -> ParticleState:
+    """``n`` alive particles in slots 0..n-1 of ``slots``."""
+    s = zero_state(slots, "cpu")
+    s.pos[:n] = torch.from_numpy(np.asarray(pos, np.float32))
+    s.age[:n] = torch.from_numpy(np.asarray(age, np.float32))
+    s.life[:n] = torch.from_numpy(np.asarray(life, np.float32))
+    s.w[:n] = 60.0
+    s.alive[:n] = True
+    if vel is not None:
+        s.vel[:n] = torch.from_numpy(np.asarray(vel, np.float32))
+    if parent is not None:
+        s.parent[:n] = torch.from_numpy(np.asarray(parent))
+    s.tag = torch.from_numpy(np.asarray(tags, np.int64))
+    return s.to(device)
+
+
+def _lattice(n: int, rng, half: float = 10.0) -> np.ndarray:
+    """``n`` points of a jittered lattice over the box, more than twice
+    the contact radius apart."""
+    side = int(np.ceil(n ** (1 / 3)))
+    step = 2 * half / side
+    ijk = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                   -1).reshape(-1, 3)[:n]
+    return -half + (ijk + 0.5) * step + rng.uniform(-0.2, 0.2, (n, 3))
+
+
+def edge_states(device, seed: int = 5) -> list:
+    """The edge states of the frame kernels, each on ``device``."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+    frame_t = torch.tensor(7, dtype=torch.int64, device=dev)
+    out = []
+
+    # every alive particle explodes, far past the spawn budget; the upper
+    # half of the slots is dead, so the last sorted blocks are all dead
+    cfg = _cfg(n_fill=2048, capacity=4096, spawn_budget=64)
+    n = 2048
+    tags = rng.integers(0, 2 ** 32, 4096)
+    tags[:len(EDGE_TAGS)] = EDGE_TAGS          # edge tags among the parents
+    out.append(EdgeState("burst", cfg, _state(
+        n, 4096, _lattice(n, rng), np.full(n, 3.0), np.full(n, 1.0), tags,
+        dev, vel=rng.uniform(-1, 1, (n, 3))), frame_t, None))
+
+    # the same, every slot alive: no free slot for a child
+    cfg = _cfg(n_fill=2048, capacity=2048, spawn_budget=64)
+    out.append(EdgeState("full", cfg, _state(
+        n, 2048, _lattice(n, rng), np.full(n, 3.0), np.full(n, 1.0),
+        rng.integers(0, 2 ** 32, 2048), dev), 3, None))
+
+    # a crowded box: collisions between the edge tags (0x80000000 and
+    # 0x80000001 share a key), parents, kids and the too old; and a
+    # 2-chunk budget on the same state
+    cfg = _cfg(n_fill=3000, capacity=4096, max_per_cell=48, seed=3)
+    n = 3000
+    pos = rng.uniform(-10.0, 10.0, (n, 3))
+    for k, t in enumerate(EDGE_TAGS):          # pairs in contact
+        pos[2 * k + 1] = pos[2 * k] + 0.1
+    tags = rng.integers(0, 2 ** 32, 4096)
+    tags[0:2 * len(EDGE_TAGS):2] = EDGE_TAGS
+    tags[1:2 * len(EDGE_TAGS):2] = EDGE_TAGS[::-1]
+    age = rng.uniform(0.0, 16.0, n)            # kids, adults, the too old
+    life = rng.uniform(1.0, 30.0, n)
+    parent = rng.random(n) < 0.3
+    state = _state(n, 4096, pos, age, life, tags, dev, parent=parent,
+                   vel=rng.uniform(-12, 12, (n, 3)))
+    out.append(EdgeState("tags", cfg, state, frame_t, None))
+    out.append(EdgeState("cmax2", cfg, state, 11, 2))
+
+    # a cap of 8 a cell over particles crowded into a corner: overflow
+    # rows, and the grid's other cells empty
+    cfg = _cfg(n_fill=1000, capacity=2048, max_per_cell=8, seed=9)
+    n = 1000
+    out.append(EdgeState("overflow", cfg, _state(
+        n, 2048, rng.uniform(-10.0, -1.0, (n, 3)), rng.uniform(1.0, 14.0, n),
+        rng.uniform(1.0, 30.0, n), rng.integers(0, 2 ** 32, 2048), dev),
+        frame_t, None))
+    return out
+
+
+def dims_case(device, seed: int = 6):
+    """``prepare``'s inputs as the decomposed step gives them: a grid of
+    (d1, d2, d3) = (3, 5, 4) cells, explicit ids, and -1-id padding rows
+    (dead).  Returns (cfg, (pos, age, w, cell, alive, tags), dims, ids)."""
+    rng = np.random.default_rng(seed)
+    cfg = _cfg(n_fill=1500, capacity=2048, max_per_cell=48)
+    dims = (3, 5, 4)
+    n, pad = 2048, 300
+    t = lambda a, dt: torch.from_numpy(np.asarray(a, dt)).to(device)
+    alive = rng.random(n) < 0.8
+    alive[-pad:] = False
+    ids = rng.permutation(n).astype(np.int32)
+    ids[-pad:] = -1
+    args = (t(rng.uniform(-7.5, 7.5, (n, 3)), np.float32),
+            t(rng.uniform(0.0, 16.0, n), np.float32),
+            t(np.full(n, 60.0), np.float32),
+            t(rng.integers(0, int(np.prod(dims)), n), np.int64),
+            t(alive, np.bool_), t(rng.integers(0, 2 ** 32, n), np.int64))
+    return cfg, args, dims, t(ids, np.int32)
+
+
+# --- the checks (a card) ------------------------------------------------------------
+
+def _same(got, want, what: str) -> None:
+    got, want = got.cpu(), want.cpu()
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{what}: the kernel and its plain version "
+                             f"differ")
+
+
+def _same_state(a: ParticleState, b: ParticleState, what: str) -> None:
+    for f in FIELDS:
+        _same(getattr(a, f), getattr(b, f), f"{what}: {f}")
+
+
+def stats_dict(stats: torch.Tensor) -> dict:
+    return dict(zip(fk.STATS, stats[:len(fk.STATS)].tolist()))
+
+
+def hold_kernels(cfg: NBodyConfig, state: ParticleState, frame,
+                 c_max: int | None = None) -> dict:
+    """A-E against their plain versions, each on the same inputs, at one
+    frame of ``state`` (CUDA tensors): bit for bit; the pair kernel runs
+    once, on C's outputs.  Returns the frame's statistics."""
+    grid = cfg.grid
+    c_max = nbk.C_MAX if c_max is None else c_max
+    uvec, fert = nbody.frame_fields(cfg, frame, state.tag)
+    key = fk.nbody_cells_cuda(state.pos, state.alive, grid)
+    _same(key, fk.nbody_cells_plain(state.pos, state.alive, grid), "A key")
+    skey, order = torch.sort(key, stable=True)
+    sk, sp = (fk.new_stats(state.device, grid.num_chunks) for _ in range(2))
+    starts = fk.cell_starts_cuda(skey, grid.num_cells, sk, grid)
+    _same(starts, fk.cell_starts_plain(skey, grid.num_cells, sp, grid),
+          "B starts")
+    _same(sk, sp, "B stats")
+    args = (state.pos, state.age, state.w, skey, order, starts, cfg,
+            state.tag)
+    ck = fk.block_prepare_cuda(*args, sk, c_max, nbk.CH, nbk.B)
+    cp = fk.block_prepare_plain(*args, sp, c_max, nbk.CH, nbk.B)
+    for what, a, b in zip(("snap.f", "snap.i", "chunks", "inv",
+                           "overflow_s"),
+                          (ck[0].f, ck[0].i) + tuple(ck[1:]),
+                          (cp[0].f, cp[0].i) + tuple(cp[1:])):
+        _same(a, b, f"C {what}")
+    _same(sk, sp, "C stats")
+    acc_s, gmax_s = nbk.kernel_call(cfg, ck[0], ck[1])
+    outs = []
+    for lifecycle, spawn, stats in (
+            (fk.nbody_lifecycle_cuda, fk.nbody_spawn_cuda, sk),
+            (fk.nbody_lifecycle_plain, fk.nbody_spawn_plain, sp)):
+        out = state.map(torch.empty_like)
+        flags, tiles = lifecycle(state, out, acc_s, gmax_s, ck[3], ck[2],
+                                 uvec, cfg, stats)
+        outs.append((out, flags, tiles, stats.clone()))
+        spawn(out, fert, frame, flags, tiles, cfg, stats)
+    (dk, fl_k, ti_k, st_k), (dp, fl_p, ti_p, st_p) = outs
+    _same(fl_k, fl_p, "D flags")
+    _same(ti_k, ti_p, "D tiles")
+    _same(st_k, st_p, "D stats")
+    _same_state(dk, dp, "D and E")
+    _same(sk, sp, "E stats")
+    # D and E in place, as step_into runs them
+    inplace = state.map(lambda a: a.clone())
+    si = fk.new_stats(state.device, grid.num_chunks)
+    flags, tiles = fk.nbody_lifecycle_cuda(inplace, inplace, acc_s, gmax_s,
+                                           ck[3], ck[2], uvec, cfg, si)
+    fk.nbody_spawn_cuda(inplace, fert, frame, flags, tiles, cfg, si)
+    _same_state(inplace, dk, "D and E in place")
+    return stats_dict(sk)
+
+
+def hold_prepare(cfg: NBodyConfig, args, dims=None, ids=None,
+                 c_max: int | None = None) -> dict:
+    """B and C against their plain versions on ``prepare``'s inputs
+    ``args`` = (pos, age, w, cell, alive, tags) (CUDA tensors), with
+    ``dims`` and ``ids`` as the decomposed step passes them.  Returns the
+    statistics."""
+    pos, age, w, cell, alive, tags = args
+    g = cfg.grid.grid_dim
+    d1, d2, d3 = dims or (g, g, g)
+    num_cells = d1 * d2 * d3
+    c_max = nbk.C_MAX if c_max is None else c_max
+    key = torch.where(alive, cell.to(torch.int32), num_cells)
+    skey, order = torch.sort(key, stable=True)
+    sk, sp = fk.new_stats(pos.device), fk.new_stats(pos.device)
+    starts = fk.cell_starts_cuda(skey, num_cells, sk)
+    _same(starts, fk.cell_starts_plain(skey, num_cells, sp), "B starts")
+    c_args = (pos, age, w, skey, order, starts, cfg, tags)
+    ck = fk.block_prepare_cuda(*c_args, sk, c_max, nbk.CH, nbk.B,
+                               dims=dims, ids=ids)
+    cp = fk.block_prepare_plain(*c_args, sp, c_max, nbk.CH, nbk.B,
+                                dims=dims, ids=ids)
+    for what, a, b in zip(("snap.f", "snap.i", "chunks", "inv",
+                           "overflow_s"),
+                          (ck[0].f, ck[0].i) + tuple(ck[1:]),
+                          (cp[0].f, cp[0].i) + tuple(cp[1:])):
+        _same(a, b, f"C {what}")
+    _same(sk, sp, "B and C stats")
+    return stats_dict(sk)
+
+
+def plain_frame(state: ParticleState, out: ParticleState, uvec, fert,
+                frame, cfg: NBodyConfig) -> torch.Tensor:
+    """The blocks frame composed of the plain versions of A-E around the
+    pair kernel, on any device: what ``nbody.blocks_frame`` is held to.
+    Writes the next state into ``out`` and returns the statistics
+    buffer."""
+    grid = cfg.grid
+    key = fk.nbody_cells_plain(state.pos, state.alive, grid)
+    skey, order = torch.sort(key, stable=True)
+    stats = fk.new_stats(state.device, grid.num_chunks)
+    starts = fk.cell_starts_plain(skey, grid.num_cells, stats, grid)
+    snap, chunks, inv, overflow_s = fk.block_prepare_plain(
+        state.pos, state.age, state.w, skey, order, starts, cfg, state.tag,
+        stats, nbk.C_MAX, nbk.CH, nbk.B)
+    acc_s, gmax_s = nbk.kernel_call(cfg, snap, chunks)
+    flags, tiles = fk.nbody_lifecycle_plain(state, out, acc_s, gmax_s,
+                                            overflow_s, inv, uvec, cfg, stats)
+    fk.nbody_spawn_plain(out, fert, frame, flags, tiles, cfg, stats)
+    return stats
+
+
+def hold_frames(cfg: NBodyConfig, frames: int, device,
+                state: ParticleState | None = None) -> list:
+    """``frames`` frames of ``nbody.step`` (the kernels on a card; the
+    frame a Python int) against as many of :func:`plain_frame` (the frame
+    a 0-dim int64 on the device), from ``init_fill`` or ``state``: every
+    field and statistic bit for bit after every frame.  The two share the
+    pair kernel, whose inputs C and its plain version make equal.  Returns
+    the frames' statistics."""
+    dev = torch.device(device)
+    a = nbody.init_fill(cfg, dev) if state is None else state
+    b = a.map(lambda t: t.clone())
+    out = []
+    for f in range(frames):
+        a, stats = nbody.step(a, f, cfg)
+        frame_t = torch.tensor(f, dtype=torch.int64, device=dev)
+        uvec, fert = nbody.frame_fields(cfg, frame_t, b.tag)
+        nxt = b.map(torch.empty_like)
+        plain = plain_frame(b, nxt, uvec, fert, frame_t, cfg)
+        b = nxt
+        _same_state(a, b, f"frame {f}")
+        for name in nbody.STAT_NAMES:
+            want = int(plain[fk.STAT[name]])
+            if int(getattr(stats, name)) != want:
+                raise AssertionError(f"frame {f}: {name} "
+                                     f"{int(getattr(stats, name))} != {want}")
+        out.append({k: int(v) for k, v in vars(stats).items()})
+    return out
