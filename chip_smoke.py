@@ -83,7 +83,9 @@ Phases (any failure raises and exits non-zero):
     (the full config's 256 particles a cell; the numpy oracle walks every
     particle in Python); ``save`` after frame 10 of a full-width run,
     ``load`` into a fresh simulation, 5 more frames on both, bit-identical;
-    ``profile_frame()`` at full width; ``ParticleSystem`` at 10,485,760
+    ``profile_frame(k1=2, k2=6)`` at full width, its ``full_frame`` (the
+    slope of the loop ``run`` executes) beside the bench's slope on the
+    same simulation; ``ParticleSystem`` at 10,485,760
     slots with ``enable_readback(depth=3)``: 60 frames with every popped
     frame compared with ``packed()`` of its frame, then 60 frames timed
     without readback and 60 with a consumer thread draining the ring;
@@ -152,17 +154,19 @@ Phases (any failure raises and exits non-zero):
     again unless it holds each hand-written kernel once a frame);
 15. the n-body frame's kernels A-E (``csrc/nbody_frame.cu``, through
     ``ops/frame_kernels.py``): each against its plain version on the same
-    inputs, bit for bit (every field, mask, tag, flag, tile count and
-    statistic; D and E into a fresh state and in place), at full width
-    (2,097,152 slots), on phase 4's plateau prefix, on the 10M stage's
-    20,971,520 rows on 32^3 and on the edge states of
-    ``tools/frame_states.py``, B and C also on a non-cubic grid with ids
-    and -1 padding; 20 frames of ``nbody.step`` against 20 frames
-    composed of the plain versions at full width, bit for bit; each
-    kernel timed through its wrapper, in a CUDA graph and in a graph with
-    the L2 cleared before each launch, beside its bound (bytes; A's and
-    E's counted on the run's data) and, for B, ``torch.searchsorted``; a
-    trace of the 10M stage's replayed frames, its largest kernels.
+    inputs, bit for bit (every field, record, mask, tag, flag, tile count
+    and statistic; A and C with records and without; D and E into a fresh
+    state and in place), at full width (2,097,152 slots), on phase 4's
+    plateau prefix, on the 10M stage's 20,971,520 rows on 32^3 and on the
+    edge states of ``tools/frame_states.py``, B and C also on a non-cubic
+    grid with ids and -1 padding; 20 frames of ``nbody.step`` against 20
+    frames composed of the plain versions at full width, bit for bit;
+    each kernel (A and C with records and without) timed through its
+    wrapper, in a CUDA graph and in a graph with the L2 cleared before
+    each launch, beside its bound (bytes; A's and E's counted on the run's
+    data) and, for B, ``torch.searchsorted``, then A + C of each route
+    against their summed bound; a trace of the 10M stage's replayed
+    frames, its largest kernels.
 
 The single-device frame loops (``NBodySimulation.run``,
 ``PackedEngine.step``/``step_many``, and ``ParticleSystem``, ``bench`` and
@@ -174,7 +178,7 @@ kernels' in phases 4, 6, 7, 9, 10, 11, 12 and 14 (once a frame, once an
 phase 6 also holds the spawn draws on the card against those on the
 CPU.  Every single-device n-body frame on the card runs A-E once (phases
 4, 9, 12 and 14 read their launches); ``prepare``, the decomposed step's
-included, runs B and C.
+included, runs B and C, C on the arrays it is given.
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -1479,6 +1483,7 @@ def phase_validate_checkpoint_profile(sim, dev):
     from particlesystem_tpu_torch.api import NBodySimulation
     from particlesystem_tpu_torch.core.state import FIELDS
     from particlesystem_tpu_torch.models import nbody
+    from particlesystem_tpu_torch.utils.timers import slope_ms
 
     # validate: the card against the numpy oracle, events exact
     small = NBodySimulation(NBodyConfig(
@@ -1526,10 +1531,11 @@ def phase_validate_checkpoint_profile(sim, dev):
           f"identical (alive {int(a.last_stats.n_alive)})")
     del a, b, sa, sb
 
-    # profile_frame on the main path's simulation (active prefix engaged)
+    # profile_frame on the main path's simulation (active prefix engaged),
+    # as the JAX package's is called
     before = {f: getattr(sim.state, f).clone() for f in FIELDS}
     frame = sim.frame
-    stages = sim.profile_frame()
+    stages = sim.profile_frame(k1=2, k2=6)
     assert sim.frame == frame
     for f in FIELDS:
         assert torch.equal(getattr(sim.state, f), before[f]), \
@@ -1538,11 +1544,19 @@ def phase_validate_checkpoint_profile(sim, dev):
                             "calc_forces", "unsort", "lifecycle",
                             "full_frame"], list(stages)
     parts = sum(ms for k, ms in stages.items() if k != "full_frame")
-    print(f"phase 10: profile_frame at frame {frame}, active prefix "
-          f"{sim._active or cfg.slots}: "
+    active = sim._active or cfg.slots
+    # the bench's slope on the same simulation and prefix (it advances
+    # the state; the prefix held where it is)
+    sim.active_bucketing = False
+    bench_ms = slope_ms(lambda k: sim.run(k, batch=k), 2, 6, 3, dev)
+    sim.active_bucketing = True
+    print(f"phase 10: profile_frame(k1=2, k2=6) at frame {frame}, active "
+          f"prefix {active}: "
           + ", ".join(f"{k} {ms:.3f}" for k, ms in stages.items())
           + f" ms; stages sum {parts:.3f} ms beside full_frame "
-          f"{stages['full_frame']:.3f} ms")
+          f"{stages['full_frame']:.5f} ms (replays of the loop run "
+          f"executes); the bench's slope on the same simulation and "
+          f"prefix, frames {frame}-{sim.frame}: {bench_ms:.5f} ms a frame")
 
 
 def phase_readback(dev):
@@ -3016,10 +3030,13 @@ def frame_kernel_bytes(cfg, st, tiles, k: int) -> dict:
     """{kernel: the bytes it must move} on the state ``st``: each input
     read once, each output written once (``ops/frame_kernels.py``'s
     shapes; D in place, its tags not written).  A's and E's depend on the
-    data: A reads the alive flag of every slot and the positions of the
-    alive ones only, counted by the 32-byte sectors that hold them; E the
-    tiles it ranks (those whose prefix holds fewer than ``k`` exploding or
-    free slots) and the ``k`` children it writes."""
+    data: A without records reads the alive flag of every slot and the
+    positions of the alive ones only, counted by the 32-byte sectors that
+    hold them; E the tiles it ranks (those whose prefix holds fewer than
+    ``k`` exploding or free slots) and the ``k`` children it writes.  The
+    ``_records`` route: A reads every slot's pos, age, w and tag and writes
+    its record, C reads one record a row where it otherwise gathers the
+    row's pos, age, w and tag."""
     import torch
     from particlesystem_tpu_torch.ops import frame_kernels as fk
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
@@ -3027,14 +3044,20 @@ def frame_kernel_bytes(cfg, st, tiles, k: int) -> dict:
     nc, nt = cfg.grid.num_cells, tiles.shape[0]
     before = torch.cumsum(tiles, 0) - tiles
     ranked = int(((before[:, 0] < k) | (before[:, 1] < k)).sum())
-    starts, stats = 4 * (nc + 2), 8 * len(fk.STATS)
+    starts = 4 * (nc + 2)
+    stats = 8 * (len(fk.STATS) + cfg.grid.num_chunks)
+    table = 16 * (n // nbk.B) * nbk.C_MAX
+    # skey and order in; f, i, inv, overflow out; the starts, the chunk
+    # table, the statistics
+    c_rows = (4 + 8 + 41) * n + starts + table + stats
     return dict(
         # alive in, the key out; pos of the alive slots
         nbody_cells=(1 + 4) * n + 32 * pos_sectors(st.alive),
-        cell_starts=4 * n + starts + stats,
-        # pos, age, w, tags, skey, order in; f, i, inv, overflow out
-        block_prepare=(40 + 41) * n + starts
-        + 16 * (n // nbk.B) * nbk.C_MAX + stats,
+        # alive, pos, age, w, tag in; the key and the record out
+        nbody_cells_records=(1 + 12 + 4 + 4 + 8 + 4 + 4 * fk.RECORD) * n,
+        cell_starts=4 * n + starts,
+        block_prepare=c_rows + fk.GATHERED * n,
+        block_prepare_records=c_rows + 4 * fk.RECORD * n,
         # inv, acc_s, gmax_s, overflow_s, the state, uvec in; the state,
         # flags out; the tile counts
         nbody_lifecycle=(79 + 51) * n + 8 * nt + stats,
@@ -3048,36 +3071,44 @@ def frame_kernel_bytes(cfg, st, tiles, k: int) -> dict:
 def frame_kernel_calls(cfg, st, frame):
     """{kernel: (kernel thunk, plain thunk)} of A-E on the inputs one
     frame of ``st`` gives them (D and E into a scratch state, so that each
-    call repeats), the stats buffers reused; and the inputs."""
+    call repeats), A and C without records and with them (``_records``),
+    the stats buffers reused; and the inputs."""
     import torch
     from particlesystem_tpu_torch.models import nbody
     from particlesystem_tpu_torch.ops import frame_kernels as fk
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
     grid = cfg.grid
+    nc = grid.num_cells
     s = [fk.new_stats(st.device, grid.num_chunks) for _ in range(2)]
     uvec, fert = nbody.frame_fields(cfg, frame, st.tag)
-    key = fk.nbody_cells_cuda(st.pos, st.alive, grid)
+    a_args = (st.pos, st.alive, st.age, st.w, st.tag, grid)
+    key, rec = fk.nbody_cells_cuda(*a_args)
     skey, order = torch.sort(key, stable=True)
-    starts = fk.cell_starts_cuda(skey, grid.num_cells, s[0], grid)
-    c_args = (st.pos, st.age, st.w, skey, order, starts, cfg, st.tag)
-    snap, chunks, inv, ovf = fk.block_prepare_cuda(*c_args, s[0], nbk.C_MAX,
-                                                   nbk.CH, nbk.B)
+    starts = fk.cell_starts_cuda(skey, nc)
+    c_args = (skey, order, starts, cfg)
+    c_tail = (nbk.C_MAX, nbk.CH, nbk.B)
+    fields = fk.Fields(st.pos, st.age, st.w, st.tag)
+    snap, chunks, inv, ovf = fk.block_prepare_cuda(rec, *c_args, s[0],
+                                                   *c_tail, grid=grid)
     acc_s, gmax_s = nbk.kernel_call(cfg, snap, chunks)
     scratch = [st.map(torch.empty_like) for _ in range(2)]
     d_args = (acc_s, gmax_s, ovf, inv, uvec, cfg)
     flags, tiles = fk.nbody_lifecycle_cuda(st, scratch[0], *d_args, s[0])
     fk.nbody_lifecycle_plain(st, scratch[1], *d_args, s[1])
+    c_calls = lambda rows: (
+        lambda: fk.block_prepare_cuda(rows, *c_args, s[0], *c_tail,
+                                      grid=grid),
+        lambda: fk.block_prepare_plain(rows, *c_args, s[1], *c_tail,
+                                       grid=grid))
     calls = dict(
-        nbody_cells=(lambda: fk.nbody_cells_cuda(st.pos, st.alive, grid),
-                     lambda: fk.nbody_cells_plain(st.pos, st.alive, grid)),
-        cell_starts=(
-            lambda: fk.cell_starts_cuda(skey, grid.num_cells, s[0], grid),
-            lambda: fk.cell_starts_plain(skey, grid.num_cells, s[1], grid)),
-        block_prepare=(
-            lambda: fk.block_prepare_cuda(*c_args, s[0], nbk.C_MAX, nbk.CH,
-                                          nbk.B),
-            lambda: fk.block_prepare_plain(*c_args, s[1], nbk.C_MAX, nbk.CH,
-                                           nbk.B)),
+        nbody_cells=(lambda: fk.nbody_cells_cuda(*a_args, records=False),
+                     lambda: fk.nbody_cells_plain(*a_args, records=False)),
+        nbody_cells_records=(lambda: fk.nbody_cells_cuda(*a_args),
+                             lambda: fk.nbody_cells_plain(*a_args)),
+        cell_starts=(lambda: fk.cell_starts_cuda(skey, nc),
+                     lambda: fk.cell_starts_plain(skey, nc)),
+        block_prepare=c_calls(fields),
+        block_prepare_records=c_calls(rec),
         nbody_lifecycle=(
             lambda: fk.nbody_lifecycle_cuda(st, scratch[0], *d_args, s[0]),
             lambda: fk.nbody_lifecycle_plain(st, scratch[1], *d_args, s[1])),
@@ -3087,16 +3118,20 @@ def frame_kernel_calls(cfg, st, frame):
             lambda: fk.nbody_spawn_plain(scratch[1], fert, frame, flags,
                                          tiles, cfg, s[1])))
     library = dict(cell_starts=lambda: torch.searchsorted(
-        skey, torch.arange(grid.num_cells + 2, dtype=torch.int32,
-                           device=st.device), out_int32=True))
+        skey, torch.arange(nc + 2, dtype=torch.int32, device=st.device),
+        out_int32=True))
     return calls, library, tiles
 
 
 def time_frame_kernels(cfg, st, frame, label: str) -> dict:
-    """A-E on one frame of ``st``: each kernel through its wrapper and in a
-    CUDA graph, timed (plain, kernel, kernel, plain) beside its plain
-    version, its bound (bytes) and, for B, ``torch.searchsorted``; returns
-    {kernel: row of the kernels line}."""
+    """A-E (A and C with records and without) on one frame of ``st``: each
+    kernel through its wrapper, in a CUDA graph and in a graph with the L2
+    cleared, timed (plain, kernel, kernel, plain) beside its plain version,
+    its bound (bytes) and, for B, ``torch.searchsorted``; then A + C of
+    each route against their summed bound.  Returns {kernel: row of the
+    kernels line}, A's and C's of the route the frame takes at this size
+    (``frame_kernels.records_pay``)."""
+    from particlesystem_tpu_torch.ops import frame_kernels as fk
     calls, library, tiles = frame_kernel_calls(cfg, st, frame)
     k = _spawned(cfg, st, frame)
     work = frame_kernel_bytes(cfg, st, tiles, k)
@@ -3125,6 +3160,21 @@ def time_frame_kernels(cfg, st, frame, label: str) -> dict:
               f"with the L2 cleared"
               + ("" if lib_ms is None else
                  f"; torch.searchsorted {lib_ms:.5f} ms"))
+    records = fk.records_pay(st.slots, st.device)
+    for route in ("", "_records"):
+        a, c = rows["nbody_cells" + route], rows["block_prepare" + route]
+        print(f"phase 15: {label}: A + C "
+              f"{'with' if route else 'without'} records "
+              f"{a['graph_ms'] + c['graph_ms']:.5f} ms in a graph, "
+              f"{a['cold_ms'] + c['cold_ms']:.5f} with the L2 cleared, "
+              f"against their summed bound "
+              f"{a['bound_ms'] + c['bound_ms']:.5f} ms "
+              f"({a['bytes'] + c['bytes']} bytes)"
+              + ("; the frame's route at this size"
+                 if bool(route) == records else ""))
+    if records:
+        for k in ("nbody_cells", "block_prepare"):
+            rows[k] = rows.pop(k + "_records")
     return rows
 
 
@@ -3153,9 +3203,10 @@ def _spawned(cfg, st, frame) -> int:
 def phase_frame_kernels(dev, plateau_state, plateau_frame: int):
     """15: the frame kernels A-E (``csrc/nbody_frame.cu``).  (a) Each
     against its plain version on the same inputs, bit for bit (every
-    field, mask, tag, flag, tile count and statistic; D and E into a
-    fresh state and in place): at full width (``NBodyConfig()``'s
-    2,097,152 slots, frame 0), on phase 4's plateau prefix, on the 10M
+    field, record, mask, tag, flag, tile count and statistic; A and C
+    with records and without; D and E into a fresh state and in place): at
+    full width (``NBodyConfig()``'s 2,097,152 slots, frame 0), on phase
+    4's plateau prefix, on the 10M
     stage's 20,971,520 rows on 32^3 (frame 0), and on the edge states of
     ``tools/frame_states.py`` (a spawn burst past the budget, no free
     slot, the edge tags in contact and exploding, overflow rows beside
@@ -3163,9 +3214,11 @@ def phase_frame_kernels(dev, plateau_state, plateau_frame: int):
     C also on the decomposed step's inputs (a non-cubic grid, ids, -1
     padding).  (b) 20 frames of ``nbody.step`` (the kernels) against 20
     frames of ``frame_states.plain_frame`` (the plain versions), at full
-    width: every field and statistic bit for bit.  (c) Each kernel timed
-    on the plateau prefix (and at 10M) beside its bound.  Returns the
-    rows of the kernels line and the largest difference (0)."""
+    width: every field and statistic bit for bit.  (c) Each kernel (A and
+    C with records and without) timed on the plateau prefix and at 10M
+    beside its bound.  Returns the rows of the kernels line (A-E, A and C
+    of the route the frame takes at the prefix) and the largest
+    difference (0)."""
     import torch
     from particlesystem_tpu_torch import NBodyConfig
     from particlesystem_tpu_torch.models import nbody
@@ -3208,6 +3261,7 @@ def phase_frame_kernels(dev, plateau_state, plateau_frame: int):
           f"{frames[-1]}")
     rows = time_frame_kernels(cfg, plateau_state, frame_t,
                               f"plateau prefix {plateau_state.slots} rows")
+    rows = {k: rows[k] for k in FRAME_KERNELS}
     big = nbody.init_fill(nbody_10m_cfg(), dev)
     time_frame_kernels(nbody_10m_cfg(), big, 0,
                        f"10M stage {big.slots} rows, frame 0")

@@ -40,7 +40,7 @@ from .runtime.engine import EngineState, PackedEngine
 from .runtime.readback import AsyncReadback
 from .utils.device import resolve_device
 from .utils.frame_graph import FrameGraphs
-from .utils.timers import PhaseTimers
+from .utils.timers import PhaseTimers, slope_ms
 
 #: the statistics a frame leaves in the loop's static buffer, in order
 STAT_FIELDS = nbody.STAT_NAMES
@@ -432,7 +432,7 @@ class NBodySimulation:
                 times.append((time.perf_counter() - t0) * 1e3)
         return out, float(np.median(times))
 
-    def profile_frame(self, reps: int = 5) -> dict:
+    def profile_frame(self, k1: int = 2, k2: int = 6, reps: int = 5) -> dict:
         """Stage-by-stage timing of one frame at the current state: the
         structured equivalent of the reference's per-iteration
         ``total / init_iframe / build_grid / calc_forces`` printout
@@ -441,7 +441,8 @@ class NBodySimulation:
         * ``rng_fields``  — per-frame random field generation (the
           threefry kernel on a card)
         * ``cell_ids``    — torus wrap and cell id assignment (``blocks``:
-          kernel A of ``models/nbody.blocks_frame``, the sort key)
+          kernel A of ``models/nbody.blocks_frame``, the sort key and,
+          where they pay, the rows' records)
         * ``build_grid``  — sort by cell and the chunk table (``blocks``:
           ``frame_kernels.sort_and_prepare``, the sort and kernels B and
           C), or the cell lists (``dense``); the
@@ -456,16 +457,23 @@ class NBodySimulation:
         * ``lifecycle``   — death/survive/integrate/spawn updates; on the
           ``blocks`` frame, whose D has done the rest, the spawn alone
           (kernel E: the tile scan, rank and write)
-        * ``full_frame``  — the whole step, for cross-checking the sum
+        * ``full_frame``  — the whole frame as :meth:`run` executes it: the
+          median of ``reps`` slopes between ``k1`` and ``k2`` frames of its
+          loop (graph replays of the current key on a card, the same loop
+          eagerly on the CPU), each from the current state, after a
+          warm-up of ``k1`` frames (``utils/timers.slope_ms``, the bench's
+          method); the state is put back after each run
 
-        Each stage runs ``reps`` times in this process on the inputs the
-        frame gives it (on the active prefix where one is engaged), timed
-        with CUDA events on a card and the host clock on the CPU; a stage's
-        time is the median of its runs.  On a card every stage runs what
-        the frame runs there, the kernels; the CPU runs their plain
-        versions.  D and E write a scratch state.  Results
-        are recorded into ``self.timers`` (phases ``frame/<stage>``) and
-        returned as {stage: ms}.  Does not advance ``self.state``."""
+        Each other stage runs ``reps`` times in this process on the inputs
+        the frame gives it (on the active prefix where one is engaged),
+        timed with CUDA events on a card and the host clock on the CPU; a
+        stage's time is the median of its runs.  On a card every stage runs
+        what the frame runs there, the kernels; the CPU runs their plain
+        versions.  D and E write a scratch state.  Results are recorded
+        into ``self.timers`` (phases ``frame/<stage>``) and returned as
+        {stage: ms}.  Does not advance ``self.state`` or ``self.frame``."""
+        if not 0 < k1 < k2:
+            raise ValueError(f"need 0 < k1 < k2, got k1={k1} k2={k2}")
         from .ops import frame_kernels as fk
         from .ops import neighbor_blocks as nbk
         from .ops.grid import build_bins, coords_to_cell, wrap_positions
@@ -487,11 +495,10 @@ class NBodySimulation:
             cfg, frame, state.tag))
 
         if self.impl == "blocks":
-            key = stage("cell_ids", lambda: fk.nbody_cells(
-                state.pos, state.alive, grid))
+            key, rows = stage("cell_ids", lambda: fk.cells_and_rows(
+                state, grid))
             p = stage("build_grid", lambda: fk.sort_and_prepare(
-                key, state.pos, state.age, state.w, state.tag, cfg,
-                nbk.C_MAX, nbk.CH, nbk.B, grid=grid))
+                key, rows, cfg, nbk.C_MAX, nbk.CH, nbk.B, grid=grid))
             acc_s, gmax_s = stage("calc_forces", lambda: nbk.kernel_call(
                 cfg, p.snap, p.chunks))
             scratch = state.map(torch.empty_like)
@@ -514,12 +521,32 @@ class NBodySimulation:
             stage("lifecycle", lambda: nbody.lifecycle_update(
                 state, pos_w, bins.overflow, acc, kill, touch, uvec, fert,
                 frame, cfg))
-        stage("full_frame", lambda: self._step(self.state, frame))
+        out["full_frame"] = self._loop_slope_ms(k1, k2, reps)
 
         for name, ms in out.items():
             self.timers.totals[f"frame/{name}"] += ms / 1e3
             self.timers.counts[f"frame/{name}"] += 1
         return out
+
+    def _loop_slope_ms(self, k1: int, k2: int, reps: int) -> float:
+        """``profile_frame``'s ``full_frame``: batches of ``k1`` and ``k2``
+        frames through :meth:`_batch`, each from the current state, which
+        (with the frame, the prefix and the width, which ``_batch`` leaves
+        alone) is as it was after."""
+        saved = self.state.map(lambda a: a.clone())
+
+        def restore():
+            for f in FIELDS:
+                getattr(self.state, f).copy_(getattr(saved, f))
+
+        def run_k(k):
+            restore()
+            self._batch(k)
+
+        run_k(k1)   # the key's eager frame and capture, if it has none yet
+        ms = slope_ms(run_k, k1, k2, max(1, reps), self.device)
+        restore()
+        return ms
 
     # -- persistence -------------------------------------------------------------
     def save(self, path: str) -> None:

@@ -47,7 +47,6 @@ import sys
 import time
 from typing import Callable, Dict
 
-import numpy as np
 import torch
 
 from .api import NBodySimulation
@@ -55,6 +54,7 @@ from .core.config import (Emitter, EmitterSceneConfig, GridSpec,
                           NBodyConfig, PlaneCollider, SphereCollider)
 from .runtime.engine import PackedEngine
 from .utils.device import resolve_device
+from .utils.timers import slope_ms
 
 #: frames of ``run(WARM_FRAMES, batch=1)`` before an n-body measurement
 WARM_FRAMES = 3
@@ -110,23 +110,6 @@ def full_packed(n: int, device, seed: int = 0):
     return (*pos.unbind(), *vel.unbind(), life * 0.1, life)
 
 
-def _timed_ms(fn, device: torch.device) -> float:
-    """Milliseconds of ``fn()``: CUDA events around it on a card, so the
-    device's time from the first queued launch to the last; the host clock
-    on the CPU, where every op is done when it returns."""
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        fn()
-        return (time.perf_counter() - t0) * 1e3
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
-
-
 def _reset_peak(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -138,18 +121,6 @@ def _peak(device: torch.device):
         return None
     torch.cuda.synchronize(device)
     return int(torch.cuda.max_memory_allocated(device))
-
-
-def _slope_ms(run_k, k_short: int, k_long: int, reps: int,
-              device: torch.device) -> float:
-    """Median over ``reps`` of the per-frame slope between ``run_k(
-    k_short)`` and ``run_k(k_long)``, each timed on its own."""
-    samples = []
-    for _ in range(reps):
-        t_short = _timed_ms(lambda: run_k(k_short), device)
-        t_long = _timed_ms(lambda: run_k(k_long), device)
-        samples.append((t_long - t_short) / (k_long - k_short))
-    return float(np.median(samples))
 
 
 def _positive(ms: float) -> float:
@@ -179,7 +150,7 @@ def bench_capacity(capacity: int, k_short: int = 16, k_long: int = 112,
     run_k(k_long)
     for _ in range(soak):
         run_k(k_long)
-    ms = _positive(_slope_ms(run_k, k_short, k_long, reps, dev))
+    ms = _positive(slope_ms(run_k, k_short, k_long, reps, dev))
     return {"rate": cfg.slots / (ms * 1e-3), "ms": ms,
             "alive": int(eng.alive_count(box[0])), "peak_bytes": _peak(dev)}
 
@@ -198,7 +169,7 @@ def bench_nbody(n_fill: int = 1 << 20, grid_dim: int = 16, k_short: int = 2,
     active = sim._active or cfg.slots
     print(f"n-body {cfg.n_fill}: active prefix {active}/{cfg.slots} from "
           f"frame {sim.frame}", file=sys.stderr)
-    ms = _slope_ms(lambda k: sim.run(k, batch=k), k_short, k_long, reps, dev)
+    ms = slope_ms(lambda k: sim.run(k, batch=k), k_short, k_long, reps, dev)
     moved = sim._active or cfg.slots
     print(f"n-body {cfg.n_fill}: active prefix {moved}/{cfg.slots} at "
           f"frame {sim.frame}", file=sys.stderr)
@@ -238,7 +209,7 @@ def bench_nbody_sharded_d1(n_fill: int = 1 << 20, grid_dim: int = 16,
             cfg, SlabSpec(n_devices=1, impl="blocks"),
             group=dist.group.WORLD, device=dev)
         sim.run(k_short, batch=k_short)
-        ms = _slope_ms(lambda k: sim.run(k, batch=k), k_short, k_long, reps,
+        ms = slope_ms(lambda k: sim.run(k, batch=k), k_short, k_long, reps,
                        dev)
         if sim.n_degraded_frames:
             raise RuntimeError(f"{sim.n_degraded_frames} batches dropped "

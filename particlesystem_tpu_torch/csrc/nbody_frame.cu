@@ -12,29 +12,38 @@
 // The frame on the card is
 //
 //   A ps_nbody_cells     one thread a slot: wrap, cell, sort key
-//                        alive ? cell : num_cells (int32); a dead slot's
-//                        position is not read
+//                        alive ? cell : num_cells (int32) and, where the
+//                        frame's rows outgrow the L2 cache, the slot's
+//                        32-byte record {x, y, z, w, age, okey(tag), slot,
+//                        0} (int32 bits), written for every slot, dead
+//                        ones too: a dead row's snapshot carries its raw
+//                        position and its age gates its collision key;
+//                        without records a dead slot's position is not
+//                        read
 //     torch.sort(key, stable=True)
 //   B ps_cell_starts     one thread a sorted row: starts[k] = r for k in
-//                        (skey[r-1], skey[r]]; the last block to finish
-//                        reduces the counts starts[k+1] - starts[k] to the
-//                        largest cell and, on the cubic grid, the largest
-//                        chunk (A counts nothing: every count is a
-//                        difference of starts, so the frame needs no
-//                        per-row atomic)
-//   C ps_block_prepare   one CTA a block of b sorted rows: the snapshot
-//                        f (7, N) and i (2, N) gathered through order, the
+//                        (skey[r-1], skey[r]]; nothing else, so no block
+//                        waits on another
+//   C ps_block_prepare   one CTA a block of b sorted rows, 4 consecutive
+//                        rows a thread: the snapshot f (7, N) and i (2, N)
+//                        from one record a row gathered through order (or,
+//                        without records, from the state's arrays), the
 //                        in-cell rank and overflow, the out-of-band bands,
 //                        the inverse permutation inv[order[r]] = r, the
 //                        block's valid cell range, its 9 stencil ranges and
-//                        its chunk table (NB, c_max, 4)
+//                        its chunk table (NB, c_max, 4); and the counts:
+//                        the row that ends a cell holds the cell's count
+//                        (rank + 1), which goes into the largest cell (one
+//                        atomicMax a block) and, on the cubic grid, into
+//                        its chunk's counter
 //     the pair kernel (neighbor_blocks.cu)
 //   D ps_nbody_lifecycle one thread a slot, slot order: the pair outputs
 //                        read through inv, kill/touch and the mine-side
 //                        age window, the five flags, clamped Euler, the
 //                        wrap (pos_w is recomputed here from pos), aging,
 //                        explosion; explode/free flags and their counts a
-//                        tile of 256 slots
+//                        tile of 256 slots; its block 0 reduces C's chunk
+//                        counters to the largest chunk and zeroes them
 //   E ps_nbody_spawn     three kernels: one block scans the tile counts;
 //                        each tile ranks its exploding and free slots (a
 //                        block scan over the flags plus the tile's prefix)
@@ -56,20 +65,28 @@
 // contracts nothing into an FMA: vel*dt + ((0.5*acc)*dt)*dt, then the clamp,
 // pos + dx, the wrap's shift d*cell_size (d negated first on the y and z
 // axes), vel + acc*dt, age + dt, uvec*speed.  The clamps pass NaN through
-// as torch.clamp does.
+// as torch.clamp does.  Records carry floats as their bits, ids and tags
+// as integers.
 //
 // What bounds them on the card: bytes.  A reads 13 bytes a slot and writes
-// 4, B reads 4 a row, C 40 a row in (gathered through order) and 41 out,
-// D 79 in (gathered through inv) and 51 out, E a byte a slot of the tiles
-// it ranks and some 100 a child.  The design keeps each pass to one read
-// of its inputs: no intermediate touches device memory, every mask and
-// count lives in registers, a block reduces in registers before it
-// touches shared or global memory, B's grid strides so that few blocks
-// queue on its one ticket, C's 9 ranges are 9 threads (each range's start
-// is clipped by the previous range's end, which has a closed form), and
-// a tile of E with nothing to rank below k leaves before it reads its
-// flags.  The gathers stay: a random 4-byte read moves a 32-byte sector,
-// which is what keeps C and D from their bounds at 10M rows.
+// 4, or with records reads 29 and writes 36; B reads 4 a row; C reads 12 a
+// row in order, gathers 28 through order (one 32-byte record, or pos, age,
+// w and tag from their arrays) and writes 41; D 79 in (gathered through
+// inv) and 51 out,
+// E a byte a slot of the tiles it ranks and some 100 a child.  The design
+// keeps each pass to one read of its inputs: no intermediate touches device
+// memory, every mask and count lives in registers, a block reduces in
+// registers before it touches shared or global memory, C's 9 ranges are 9
+// threads (each range's start is clipped by the previous range's end, which
+// has a closed form), and a tile of E with nothing to rank below k leaves
+// before it reads its flags.  A gathered row moves whole 32-byte sectors:
+// C's record is one sector where the state's arrays cost four or five.
+// That pays only where the arrays outgrow the L2 cache (the frame's rows
+// times 28 bytes, ops/frame_kernels.records_pay): below it the gathers hit
+// the L2 and the record's 32 bytes written and read a slot cost more than
+// they save, so A writes none and C gathers the arrays.  Each of C's
+// threads starts the loads of its four rows before it uses any.  D still
+// gathers through inv.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -77,11 +94,11 @@
 
 namespace {
 
-constexpr int THREADS = 256;           // A, C, D, E: threads a block
+constexpr int THREADS = 256;           // A, B, D, E: threads a block
 constexpr int TILE = THREADS;          // slots a spawn tile (D's block;
                                        // ops/frame_kernels.TILE)
-constexpr int STARTS_THREADS = 1024;   // B: its last block reduces the cells
-constexpr int STARTS_BLOCKS = 132 * 2; // B: two blocks an SM
+constexpr int PREP_THREADS = 128;      // C: threads a block
+constexpr int ROWS = 4;                // C: consecutive sorted rows a thread
 constexpr int SCAN_THREADS = 1024;     // E's scan of the tile counts
 constexpr int R = 9;                   // stencil ranges a block
 constexpr long long ALIGN = 128;       // chunk starts align to 128 columns
@@ -93,7 +110,7 @@ constexpr unsigned FULL = 0xffffffffu;
 enum Stat {
     N_ALIVE, N_AGE_DEATHS, N_COLLISION_KILLS, N_OVERFLOW_KILLS, N_SURVIVALS,
     N_SPAWNED, N_SPAWN_CAPPED, N_LISTED_DROPPED, MAX_CELL, MAX_CHUNK,
-    N_TAIL_ALIVE, DONE_STARTS, N_STATS
+    N_TAIL_ALIVE, N_STATS
 };
 
 struct Grid {
@@ -110,8 +127,23 @@ struct State {
 struct Prep {
     long long n;
     int b, num_cells, row_stride, plane_stride, cap, c_max, ch;
+    int g, cd, cf;   // the cubic grid's chunks (cf = 0: none counted)
     float kid_age, life;
-    int offs[R];   // the stencil's cell offsets, ascending
+    int offs[R];     // the stencil's cell offsets, ascending
+};
+
+// where C reads a sorted row's fields: A's records (two int4 a slot), or,
+// with rec null, the state's arrays (the frame below the L2, and prepare)
+struct Rows {
+    const int4* rec;
+    const float *pos, *age, *w;
+    const long long* tags;
+    const int* ids;   // null: the slot
+};
+
+// a row's fields as bits: x, y, z, w, age, okey(tag), id
+struct Row {
+    int v[7];
 };
 
 struct Life {
@@ -197,151 +229,200 @@ __device__ int block_exclusive_scan(int v)
     return before + inc - v;
 }
 
-// A: the sort key of every slot
+// A: the sort key of every slot and, unless rec is null, its record
 __global__ void __launch_bounds__(THREADS) nbody_cells(
     const float* __restrict__ pos, const unsigned char* __restrict__ alive,
-    long long n, Grid gr, int* __restrict__ key)
+    const float* __restrict__ age, const float* __restrict__ w,
+    const long long* __restrict__ tags, long long n, Grid gr,
+    int* __restrict__ key, int4* __restrict__ rec)
 {
     const long long s = static_cast<long long>(blockIdx.x) * THREADS
                         + threadIdx.x;
     if (s >= n) return;
-    // a dead slot's key is num_cells: its position is not read
-    if (!alive[s]) {
+    const bool live = alive[s];
+    // without records a dead slot's position is not read
+    if (!live && !rec) {
         key[s] = gr.g * gr.g * gr.g;
         return;
     }
     float x = pos[3 * s], y = pos[3 * s + 1], z = pos[3 * s + 2];
+    if (rec) {
+        rec[2 * s] = make_int4(__float_as_int(x), __float_as_int(y),
+                               __float_as_int(z), __float_as_int(w[s]));
+        rec[2 * s + 1] = make_int4(__float_as_int(age[s]), okey(tags[s]),
+                                   static_cast<int>(s), 0);
+    }
+    if (!live) {
+        key[s] = gr.g * gr.g * gr.g;
+        return;
+    }
     const int3 c = wrap(x, y, z, gr);
     key[s] = (c.z * gr.g + c.x) * gr.g + c.y;
 }
 
-// B: starts = searchsorted(skey, arange(num_cells + 2)), then the maxima
-__global__ void __launch_bounds__(STARTS_THREADS) cell_starts(
+// B: starts = searchsorted(skey, arange(num_cells + 2)): the thread of
+// row r writes the starts of the keys in (skey[r-1], skey[r]], each key's
+// once
+__global__ void __launch_bounds__(THREADS) cell_starts(
     const int* __restrict__ skey, long long n, int num_cells,
-    int* __restrict__ starts, long long* stats, int g, int cd, int cf)
+    int* __restrict__ starts)
 {
-    for (long long r = static_cast<long long>(blockIdx.x) * STARTS_THREADS
-                       + threadIdx.x;
-         r <= n; r += static_cast<long long>(gridDim.x) * STARTS_THREADS) {
-        const int lo = r == 0 ? -1 : skey[r - 1];
-        const int hi = r == n ? num_cells + 1 : skey[r];
-        for (int k = lo + 1; k <= hi; ++k) starts[k] = static_cast<int>(r);
-        // the few threads that wrote make their starts visible device-wide
-        if (lo < hi) __threadfence();
-    }
-    // the last block to finish sees every start
-    __syncthreads();
-    __shared__ bool last;
-    if (threadIdx.x == 0) {
-        __threadfence();
-        last = atomicAdd(reinterpret_cast<unsigned long long*>(
-                             stats + DONE_STARTS), 1ull)
-               == gridDim.x - 1ull;
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    unsigned long long* chunk =
-        reinterpret_cast<unsigned long long*>(stats + N_STATS);
-    long long best = 0;
-    for (int k = threadIdx.x; k < num_cells; k += STARTS_THREADS) {
-        const int c = __ldcg(starts + k + 1) - __ldcg(starts + k);
-        best = max(best, static_cast<long long>(c));
-        if (cf) {
-            const int i3 = k / (g * g), rem = k % (g * g);
-            atomicAdd(chunk + ((i3 / cd) * cf + rem / g / cd) * cf
-                              + rem % g / cd,
-                      static_cast<unsigned long long>(c));
-        }
-    }
-    best = block_max(best);
-    if (threadIdx.x == 0) {
-        stats[MAX_CELL] = best;
-        stats[DONE_STARTS] = 0;
-    }
-    if (!cf) return;
-    __syncthreads();
-    best = 0;
-    for (int c = threadIdx.x; c < cf * cf * cf; c += STARTS_THREADS)
-        best = max(best, static_cast<long long>(__ldcg(chunk + c)));
-    best = block_max(best);
-    if (threadIdx.x == 0) stats[MAX_CHUNK] = best;
-    // leave the counters zero, so that a launch on the same buffer again
-    // (a timing loop) counts from zero too
-    for (int c = threadIdx.x; c < cf * cf * cf; c += STARTS_THREADS)
-        chunk[c] = 0;
+    const long long r = static_cast<long long>(blockIdx.x) * THREADS
+                        + threadIdx.x;
+    if (r > n) return;
+    const int lo = r == 0 ? -1 : skey[r - 1];
+    const int hi = r == n ? num_cells + 1 : skey[r];
+    for (int k = lo + 1; k <= hi; ++k) starts[k] = static_cast<int>(r);
 }
 
-// C: the kernel inputs of one block of p.b sorted rows
-__global__ void __launch_bounds__(THREADS) block_prepare(
-    const float* __restrict__ pos, const float* __restrict__ age,
-    const float* __restrict__ w, const long long* __restrict__ tags,
-    const int* __restrict__ ids, const int* __restrict__ skey,
+// the chunk of cell k of the cubic grid (ops/grid.chunk_occupancy's order)
+__device__ __forceinline__ int chunk_of(int k, const Prep& p)
+{
+    const int i3 = k / (p.g * p.g), rem = k % (p.g * p.g);
+    return ((i3 / p.cd) * p.cf + rem / p.g / p.cd) * p.cf + rem % p.g / p.cd;
+}
+
+template <bool RECORD>
+__device__ __forceinline__ Row load_row(const Rows& s, long long o)
+{
+    if constexpr (RECORD) {
+        const int4 a = __ldg(s.rec + 2 * o), b = __ldg(s.rec + 2 * o + 1);
+        return Row{{a.x, a.y, a.z, a.w, b.x, b.y, b.z}};
+    } else {
+        return Row{{__float_as_int(__ldg(s.pos + 3 * o)),
+                    __float_as_int(__ldg(s.pos + 3 * o + 1)),
+                    __float_as_int(__ldg(s.pos + 3 * o + 2)),
+                    __float_as_int(__ldg(s.w + o)),
+                    __float_as_int(__ldg(s.age + o)), okey(__ldg(s.tags + o)),
+                    s.ids ? __ldg(s.ids + o) : static_cast<int>(o)}};
+    }
+}
+
+// C: the kernel inputs of one block of p.b sorted rows (p.b a multiple of
+// ROWS), ROWS consecutive rows a thread
+template <bool RECORD>
+__global__ void __launch_bounds__(PREP_THREADS) block_prepare(
+    Rows src, const int* __restrict__ skey,
     const long long* __restrict__ order, const int* __restrict__ starts,
     Prep p, float* __restrict__ f, int* __restrict__ iout,
     int* __restrict__ chunks, int* __restrict__ inv,
     unsigned char* __restrict__ overflow_s, long long* stats)
 {
-    __shared__ int cmin, cmax;
+    __shared__ int cmin, cmax, occ;
     __shared__ long long astart[R], lead[R], tot[R], cum[R];
     __shared__ int nact;
     if (threadIdx.x == 0) {
         cmin = BIG;
         cmax = -BIG;
+        occ = 0;
     }
     __syncthreads();
     const long long n = p.n;
     const long long r0 = static_cast<long long>(blockIdx.x) * p.b;
-    int lmin = BIG, lmax = -BIG;
-    for (int t = threadIdx.x; t < p.b; t += THREADS) {
+    unsigned long long* chunk =
+        reinterpret_cast<unsigned long long*>(stats + N_STATS);
+    int lmin = BIG, lmax = -BIG, best = 0;
+    for (int t = ROWS * threadIdx.x; t < p.b; t += ROWS * PREP_THREADS) {
         const long long r = r0 + t;
-        const long long o = order[r];
-        const int sk = skey[r];
-        inv[o] = static_cast<int>(r);
-        const long long rank = r - starts[sk];
-        const bool in_grid = sk < p.num_cells;
-        const bool valid = in_grid && rank < p.cap;
-        overflow_s[r] = in_grid && rank >= p.cap;
-        const float a = age[o];
-        const bool ok = valid && a >= p.kid_age;
-        const float base = valid ? -10.0f : -4194304.0f;
-        const float bad_a = __fsub_rn(
-            base, static_cast<float>(2 * static_cast<int>(r % 524288)));
-        const float bad_b = __fsub_rn(
-            base, static_cast<float>(2 * static_cast<int>(r % 524287)));
-        const int i3 = sk / p.plane_stride, rem = sk % p.plane_stride;
-        f[r] = pos[3 * o];
-        f[n + r] = pos[3 * o + 1];
-        f[2 * n + r] = pos[3 * o + 2];
-        f[3 * n + r] = ok ? static_cast<float>(rem / p.row_stride) : bad_a;
-        f[4 * n + r] = ok ? static_cast<float>(rem % p.row_stride) : bad_b;
-        f[5 * n + r] = ok ? static_cast<float>(i3) : bad_a;
-        f[6 * n + r] = w[o];
-        iout[r] = ids ? ids[o] : static_cast<int>(o);
-        iout[n + r] = a <= p.life ? okey(tags[o]) : INT_MIN;
-        if (valid) {
-            lmin = min(lmin, sk);
-            lmax = max(lmax, sk);
+        // every load of the thread's rows before any use: the keys and the
+        // order as vectors, then each row's fields and its cell's bounds
+        const int4 k4 = *reinterpret_cast<const int4*>(skey + r);
+        const longlong2 oa = *reinterpret_cast<const longlong2*>(order + r);
+        const longlong2 ob =
+            *reinterpret_cast<const longlong2*>(order + r + 2);
+        const int sk[ROWS] = {k4.x, k4.y, k4.z, k4.w};
+        const long long o[ROWS] = {oa.x, oa.y, ob.x, ob.y};
+        Row row[ROWS];
+        int first[ROWS], next[ROWS];
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i) {
+            row[i] = load_row<RECORD>(src, o[i]);
+            first[i] = __ldg(starts + sk[i]);
+            next[i] = __ldg(starts + sk[i] + 1);
         }
+        float out[7][ROWS];
+        int id[ROWS], cg[ROWS];
+        unsigned char ovf[ROWS];
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i) {
+            const long long ri = r + i;
+            inv[o[i]] = static_cast<int>(ri);
+            const int rank = static_cast<int>(ri - first[i]);
+            const bool in_grid = sk[i] < p.num_cells;
+            const bool valid = in_grid && rank < p.cap;
+            ovf[i] = in_grid && rank >= p.cap;
+            const float a = __int_as_float(row[i].v[4]);
+            const bool ok = valid && a >= p.kid_age;
+            const float base = valid ? -10.0f : -4194304.0f;
+            const float bad_a = __fsub_rn(
+                base, static_cast<float>(2 * static_cast<int>(ri % 524288)));
+            const float bad_b = __fsub_rn(
+                base, static_cast<float>(2 * static_cast<int>(ri % 524287)));
+            const int i3 = sk[i] / p.plane_stride;
+            const int rem = sk[i] % p.plane_stride;
+            out[0][i] = __int_as_float(row[i].v[0]);
+            out[1][i] = __int_as_float(row[i].v[1]);
+            out[2][i] = __int_as_float(row[i].v[2]);
+            out[3][i] = ok ? static_cast<float>(rem / p.row_stride) : bad_a;
+            out[4][i] = ok ? static_cast<float>(rem % p.row_stride) : bad_b;
+            out[5][i] = ok ? static_cast<float>(i3) : bad_a;
+            out[6][i] = __int_as_float(row[i].v[3]);
+            id[i] = row[i].v[6];
+            cg[i] = a <= p.life ? row[i].v[5] : INT_MIN;
+            if (valid) {
+                lmin = min(lmin, sk[i]);
+                lmax = max(lmax, sk[i]);
+            }
+            // the row that ends its cell holds the cell's count
+            if (in_grid && ri + 1 == next[i]) {
+                best = max(best, rank + 1);
+                if (p.cf)
+                    atomicAdd(chunk + chunk_of(sk[i], p),
+                              static_cast<unsigned long long>(rank + 1));
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < 7; ++k)
+            *reinterpret_cast<float4*>(f + k * n + r) =
+                make_float4(out[k][0], out[k][1], out[k][2], out[k][3]);
+        *reinterpret_cast<int4*>(iout + r) =
+            make_int4(id[0], id[1], id[2], id[3]);
+        *reinterpret_cast<int4*>(iout + n + r) =
+            make_int4(cg[0], cg[1], cg[2], cg[3]);
+        *reinterpret_cast<uchar4*>(overflow_s + r) =
+            make_uchar4(ovf[0], ovf[1], ovf[2], ovf[3]);
     }
     lmin = __reduce_min_sync(FULL, lmin);
     lmax = __reduce_max_sync(FULL, lmax);
+    best = __reduce_max_sync(FULL, best);
     if ((threadIdx.x & 31) == 0) {
         atomicMin(&cmin, lmin);
         atomicMax(&cmax, lmax);
+        atomicMax(&occ, best);
     }
     __syncthreads();
+    if (threadIdx.x == R && occ)   // the largest cell: one atomic a block
+        atomicMax(reinterpret_cast<unsigned long long*>(stats + MAX_CELL),
+                  static_cast<unsigned long long>(occ));
     if (threadIdx.x < R) {
         // range q of the 9, ascending, its start clipped past the previous
         // ranges' end: their ends ascend with the offsets, so that end is
         // range q-1's own
         const int q = threadIdx.x;
+        // p.offs[q] and p.offs[q - 1] by constant indices, which keeps p
+        // out of local memory
+        int off = 0, off_prev = 0;
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+            if (k == q) off = p.offs[k];
+            if (k + 1 == q) off_prev = p.offs[k];
+        }
         const bool empty = cmax < cmin;
         const long long prev_hi =
-            q ? static_cast<long long>(cmax) + 1 + p.offs[q - 1] : -BIG;
-        const long long lo = max(static_cast<long long>(cmin) - 1
-                                 + p.offs[q], prev_hi + 1);
-        const long long hi = static_cast<long long>(cmax) + 1 + p.offs[q];
+            q ? static_cast<long long>(cmax) + 1 + off_prev : -BIG;
+        const long long lo = max(static_cast<long long>(cmin) - 1 + off,
+                                 prev_hi + 1);
+        const long long hi = static_cast<long long>(cmax) + 1 + off;
         const long long rs = starts[min(max(lo, 0ll),
                                         (long long)p.num_cells)];
         const long long re = starts[min(max(hi + 1, 0ll),
@@ -360,7 +441,7 @@ __global__ void __launch_bounds__(THREADS) block_prepare(
         nact = static_cast<int>(min(c, static_cast<long long>(p.c_max)));
     }
     __syncthreads();
-    for (int j = threadIdx.x; j < p.c_max; j += THREADS) {
+    for (int j = threadIdx.x; j < p.c_max; j += PREP_THREADS) {
         int4 row = make_int4(0, 0, 0, nact);
         if (j < nact) {
             int q = 0;
@@ -383,7 +464,7 @@ __global__ void __launch_bounds__(THREADS) nbody_lifecycle(
     const int* __restrict__ gmax_s,
     const unsigned char* __restrict__ overflow_s,
     const int* __restrict__ inv, const float* __restrict__ uvec, Life c,
-    unsigned char* __restrict__ flags, int* __restrict__ tiles,
+    int n_chunks, unsigned char* __restrict__ flags, int* __restrict__ tiles,
     long long* stats)
 {
     __shared__ int counts[7];
@@ -474,6 +555,17 @@ __global__ void __launch_bounds__(THREADS) nbody_lifecycle(
     } else if (threadIdx.x < 7) {
         tiles[2 * blockIdx.x + threadIdx.x - 5] = counts[threadIdx.x];
     }
+    if (blockIdx.x || !n_chunks) return;
+    // block 0: the largest of C's chunk counters, which it leaves zero, so
+    // that the next frame (or a timing loop) counts from zero too
+    unsigned long long* chunk =
+        reinterpret_cast<unsigned long long*>(stats + N_STATS);
+    long long most = 0;
+    for (int k = threadIdx.x; k < n_chunks; k += THREADS)
+        most = max(most, static_cast<long long>(chunk[k]));
+    most = block_max(most);   // every thread's reads are done
+    if (threadIdx.x == 0) stats[MAX_CHUNK] = most;
+    for (int k = threadIdx.x; k < n_chunks; k += THREADS) chunk[k] = 0;
 }
 
 // E, first kernel: the inclusive prefix sums of the tiles' (explode,
@@ -580,64 +672,76 @@ State state(float* const* f, unsigned char* const* b, long long* tag)
 // consts, fields) are read before the launch.
 
 // A: key (n,) int32 of pos (n, 3) float32 and alive (n,) bool on a cubic
-// grid of g cells an axis; inv_cell = float32(1 / cell_size)
+// grid of g cells an axis (inv_cell = float32(1 / cell_size)), and, unless
+// rec is null, rec (n, 8) int32, 32-byte aligned: each slot's {x, y, z, w,
+// age} bits, okey of its tag (int64), the slot and 0
 extern "C" int ps_nbody_cells(const float* pos, const unsigned char* alive,
-                              long long n, int g, float inv_cell,
-                              float cell_size, int* key, void* stream)
+                              const float* age, const float* w,
+                              const long long* tags, long long n, int g,
+                              float inv_cell, float cell_size, int* key,
+                              int* rec, void* stream)
 {
     if (n < 0 || g <= 0) return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0) return 0;
     nbody_cells<<<blocks_for(n, THREADS), THREADS, 0,
                   static_cast<cudaStream_t>(stream)>>>(
-        pos, alive, n, Grid{g, g / 2, inv_cell, cell_size}, key);
+        pos, alive, age, w, tags, n, Grid{g, g / 2, inv_cell, cell_size},
+        key, reinterpret_cast<int4*>(rec));
     return static_cast<int>(cudaGetLastError());
 }
 
 // B: starts (num_cells + 2,) int32 of the sorted keys skey (n,) int32, each
-// in [0, num_cells]; stats[MAX_CELL] and, where cf > 0 (the cubic grid of g
-// cells an axis in chunks of cd cells), stats[MAX_CHUNK], with the chunk
-// counters after N_STATS.  stats zeroed.
+// in [0, num_cells]
 extern "C" int ps_cell_starts(const int* skey, long long n, int num_cells,
-                              int* starts, long long* stats, int g, int cd,
-                              int cf, void* stream)
+                              int* starts, void* stream)
 {
-    if (n < 0 || num_cells <= 0 || (cf && (g <= 0 || cd <= 0)))
+    if (n < 0 || num_cells <= 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    // a grid-stride loop over at most STARTS_BLOCKS blocks: each block
-    // takes one ticket of the last-block count, and tickets on one
-    // address are served one at a time
-    const int blocks = blocks_for(n + 1, STARTS_THREADS);
-    cell_starts<<<blocks < STARTS_BLOCKS ? blocks : STARTS_BLOCKS,
-                  STARTS_THREADS, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-        skey, n, num_cells, starts, stats, g, cd, cf);
+    cell_starts<<<blocks_for(n + 1, THREADS), THREADS, 0,
+                  static_cast<cudaStream_t>(stream)>>>(skey, n, num_cells,
+                                                       starts);
     return static_cast<int>(cudaGetLastError());
 }
 
 // C: snapshot f (7, n) float32 and i (2, n) int32, chunks (n / b, c_max, 4)
-// int32 (16-byte aligned), inv (n,) int32 and overflow_s (n,) bool of the
-// rows sorted by skey through order (int64); ids (int32) or null for the
-// slot; offs (host, 9) the ascending stencil offsets; stats[N_LISTED_DROPPED]
-// accumulates.  n a multiple of b.
+// int32, inv (n,) int32 and overflow_s (n,) bool of the rows sorted by skey
+// (16-byte aligned) through order (int64, 16-byte aligned).  The rows'
+// fields come from rec (A's records, 32-byte aligned) or, where rec is
+// null, from pos, age, w, tags and ids (int32; null: the slot).  offs
+// (host, 9) the ascending stencil offsets.  stats[N_LISTED_DROPPED]
+// accumulates, stats[MAX_CELL] takes the largest cell and, where cf > 0
+// (the cubic grid of g cells an axis in chunks of cd cells), the chunk
+// counters after N_STATS add the cells' counts.  n a multiple of b, b of 4.
 extern "C" int ps_block_prepare(
-    const float* pos, const float* age, const float* w, const long long* tags,
-    const int* ids, const int* skey, const long long* order,
-    const int* starts, long long n, int b, int num_cells, int row_stride,
-    int plane_stride, const int* offs, int cap, float kid_age, float life,
-    int c_max, int ch, float* f, int* iout, int* chunks, int* inv,
+    const int* rec, const float* pos, const float* age, const float* w,
+    const long long* tags, const int* ids, const int* skey,
+    const long long* order, const int* starts, long long n, int b,
+    int num_cells, int row_stride, int plane_stride, const int* offs,
+    int cap, float kid_age, float life, int c_max, int ch, int g, int cd,
+    int cf, float* f, int* iout, int* chunks, int* inv,
     unsigned char* overflow_s, long long* stats, void* stream)
 {
-    if (n < 0 || b <= 0 || n % b || c_max <= 0 || ch <= 0 || num_cells <= 0
-            || row_stride <= 0 || plane_stride <= 0)
+    if (n < 0 || b <= 0 || b % ROWS || n % b || c_max <= 0 || ch <= 0
+            || num_cells <= 0 || row_stride <= 0 || plane_stride <= 0
+            || (cf && (g <= 0 || cd <= 0))
+            || (!rec && !(pos && age && w && tags)))
         return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0) return 0;
     Prep p{n, b, num_cells, row_stride, plane_stride, cap, c_max, ch,
-           kid_age, life, {}};
+           g, cd, cf, kid_age, life, {}};
     for (int q = 0; q < R; ++q) p.offs[q] = offs[q];
-    block_prepare<<<static_cast<unsigned>(n / b), THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        pos, age, w, tags, ids, skey, order, starts, p, f, iout, chunks, inv,
-        overflow_s, stats);
+    const Rows src{reinterpret_cast<const int4*>(rec), pos, age, w, tags,
+                   ids};
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const unsigned blocks = static_cast<unsigned>(n / b);
+    if (rec)
+        block_prepare<true><<<blocks, PREP_THREADS, 0, st>>>(
+            src, skey, order, starts, p, f, iout, chunks, inv, overflow_s,
+            stats);
+    else
+        block_prepare<false><<<blocks, PREP_THREADS, 0, st>>>(
+            src, skey, order, starts, p, f, iout, chunks, inv, overflow_s,
+            stats);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -647,14 +751,18 @@ extern "C" int ps_block_prepare(
 // be in.  acc_s (3, n), gmax_s, overflow_s in sorted order, read through
 // inv; uvec (n, 3).  consts (host): dt, particle_life, kid_age, max_dx,
 // max_v, explosion_speed, float32(1 / cell_size), cell_size.  Writes flags
-// (n,) uint8 (1 explode, 2 free) and tiles (ceil(n / 256), 2) int32.
+// (n,) uint8 (1 explode, 2 free) and tiles (ceil(n / 256), 2) int32;
+// stats[MAX_CHUNK] the largest of the n_chunks counters after N_STATS,
+// which it zeroes.
 extern "C" int ps_nbody_lifecycle(
     float* const* fields, unsigned char* const* bools, long long* const* tags,
     const float* acc_s, const int* gmax_s, const unsigned char* overflow_s,
     const int* inv, const float* uvec, long long n, const float* consts,
-    int g, unsigned char* flags, int* tiles, long long* stats, void* stream)
+    int g, int n_chunks, unsigned char* flags, int* tiles, long long* stats,
+    void* stream)
 {
-    if (n < 0 || g <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (n < 0 || g <= 0 || n_chunks < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0) return 0;
     float* fi[6] = {fields[0], fields[1], nullptr, fields[2], fields[3],
                     fields[4]};
@@ -664,8 +772,8 @@ extern "C" int ps_nbody_lifecycle(
                  consts[5], Grid{g, g / 2, consts[6], consts[7]}};
     nbody_lifecycle<<<blocks_for(n, THREADS), THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-        in, out, acc_s, gmax_s, overflow_s, inv, uvec, c, flags, tiles,
-        stats);
+        in, out, acc_s, gmax_s, overflow_s, inv, uvec, c, n_chunks, flags,
+        tiles, stats);
     return static_cast<int>(cudaGetLastError());
 }
 

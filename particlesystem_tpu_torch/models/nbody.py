@@ -162,17 +162,19 @@ def blocks_frame(state: ParticleState, out: ParticleState,
     frame in place, as :func:`step_into` runs it), given the per-frame
     random fields; returns the stats, views of one buffer.
 
-    A (cells) -> the stable sort of the int32 keys, B (cell starts) and C
-    (snapshot, chunk table, ``inv``) in ``frame_kernels.sort_and_prepare``
-    -> the pair kernel -> D (lifecycle, reading the pair outputs through
-    ``inv``) -> E (spawn): the CUDA kernels for CUDA tensors, their plain
+    A (cells, and the rows' records where they pay) -> the stable sort of
+    the int32 keys, B (cell starts) and C (snapshot from the records or the
+    state's arrays, chunk table, ``inv``, the counts) in
+    ``frame_kernels.sort_and_prepare`` -> the pair kernel
+    -> D (lifecycle, reading the pair outputs through ``inv``; the largest
+    chunk) -> E (spawn): the CUDA kernels for CUDA tensors, their plain
     versions for CPU ones.  In place is safe: D reads a slot's fields
     before it writes them and touches no other slot, and E reads exploding
     parents and writes free slots, which are disjoint."""
     grid = cfg.grid
-    key = fk.nbody_cells(state.pos, state.alive, grid)
-    p = fk.sort_and_prepare(key, state.pos, state.age, state.w, state.tag,
-                            cfg, nbk.C_MAX, nbk.CH, nbk.B, grid=grid)
+    key, rows = fk.cells_and_rows(state, grid)
+    p = fk.sort_and_prepare(key, rows, cfg, nbk.C_MAX, nbk.CH, nbk.B,
+                            grid=grid)
     acc_s, gmax_s = nbk.kernel_call(cfg, p.snap, p.chunks)
     flags, tiles = fk.nbody_lifecycle(state, out, acc_s, gmax_s,
                                       p.overflow_s, p.inv, uvec, cfg, p.stats)

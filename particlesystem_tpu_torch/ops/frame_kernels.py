@@ -8,17 +8,21 @@ computes outside the pair kernel, the threefry draw and the sort.
 
 * A :func:`nbody_cells` — torus wrap, cell id and sort key ``alive ? cell
   : num_cells`` (int32) of every slot (``ops/grid.wrap_positions``,
-  ``coords_to_cell``).
+  ``coords_to_cell``) and, where they pay (:func:`records_pay`), every
+  slot's record (:func:`pack_records`).
 * B :func:`cell_starts` — ``starts = searchsorted(skey,
-  arange(num_cells + 2))`` of the sorted keys, the largest cell and, on the
-  cubic grid, the largest chunk (``prepare``'s ``starts``/``counts``).
-* C :func:`block_prepare` — the rest of ``ops/neighbor_blocks.prepare``:
-  the snapshot, the overflow rows, the chunk table, and the inverse
-  permutation ``inv[order[r]] = r``.
+  arange(num_cells + 2))`` of the sorted keys (``prepare``'s
+  ``starts``/``counts``).
+* C :func:`block_prepare` — the rest of ``ops/neighbor_blocks.prepare``,
+  from one record a sorted row or the state's arrays (:class:`Fields`):
+  the snapshot, the overflow rows, the chunk table, the inverse
+  permutation ``inv[order[r]] = r``, the largest cell and, on the cubic
+  grid, each chunk's count.
 * D :func:`nbody_lifecycle` — ``unsort_outputs`` read through ``inv``, the
   mine-side collision window and the first part of ``lifecycle_update``
   (flags, clamped Euler, wrap, aging, explosion), writing the next state;
-  explode/free flags and their counts a tile of :data:`TILE` slots.
+  explode/free flags and their counts a tile of :data:`TILE` slots; the
+  largest chunk, from C's counts.
 * E :func:`nbody_spawn` — the spawn part of ``lifecycle_update``: the
   i-th exploding parent (ascending slot) meets the i-th free slot for
   ``i < k = min(n_child, n_free, e)``: on the card three kernels (the
@@ -28,12 +32,14 @@ Each is a dispatcher: CUDA tensors launch the kernel (``*_cuda``, which
 counts its launches in ``.launches`` through ``utils/frame_graph``), CPU
 tensors take the plain version (``*_plain``); any other device raises.
 :func:`sort_and_prepare` runs the sort, B and C in the frame's order for
-every caller (``models/nbody.blocks_frame``, ``neighbor_blocks.prepare``,
-``api.NBodySimulation.profile_frame``).
+every caller (``models/nbody.blocks_frame`` and
+``api.NBodySimulation.profile_frame`` through :func:`cells_and_rows`,
+``neighbor_blocks.prepare`` on the state's arrays).
 
 The statistics of a frame go into one int64 buffer (:func:`new_stats`,
-zeros): :data:`STATS` names its entries, the first eleven those of
-``models/nbody.NBodyStats`` in order; the chunk counters of B follow.
+zeros): :data:`STATS` names its entries, those of
+``models/nbody.NBodyStats`` in order; the chunk counters that C adds to
+and D reduces follow.
 D may write the state it reads (``out is state``), and E writes the state
 in place; see ``csrc/nbody_frame.cu`` for why that is safe.
 """
@@ -41,6 +47,7 @@ in place; see ``csrc/nbody_frame.cu`` for why that is safe.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -59,13 +66,19 @@ from .rng_kernel import frame_on
 #: the statistics buffer's entries, in ``csrc/nbody_frame.cu``'s order
 STATS = ("n_alive", "n_age_deaths", "n_collision_kills", "n_overflow_kills",
          "n_survivals", "n_spawned", "n_spawn_capped", "n_listed_dropped",
-         "max_cell_occupancy", "max_chunk_occupancy", "n_tail_alive",
-         "done_starts")
+         "max_cell_occupancy", "max_chunk_occupancy", "n_tail_alive")
 STAT = {name: i for i, name in enumerate(STATS)}
 #: slots a spawn tile (D's block and E's rank block)
 TILE = 256
 #: chunk starts align to this many sorted rows
 ALIGN = 128
+#: int32 words of a row's record: x, y, z, w, age (float bits), the
+#: collision key of the tag, the id, 0
+RECORD = 8
+#: C's sorted rows a thread: its block size must be a multiple of it
+C_ROWS = 4
+#: bytes C gathers a row from the state's arrays: pos, age, w, tag
+GATHERED = 28
 _BIG = 1 << 30
 
 
@@ -79,7 +92,8 @@ class Snapshot(NamedTuple):
 
 def new_stats(device, num_chunks: int = 0) -> torch.Tensor:
     """A zeroed statistics buffer, with ``num_chunks`` chunk counters for
-    :func:`cell_starts`' largest chunk."""
+    the largest chunk (:func:`block_prepare` adds, :func:`nbody_lifecycle`
+    reduces)."""
     return torch.zeros((len(STATS) + num_chunks,), dtype=torch.int64,
                        device=device)
 
@@ -99,6 +113,10 @@ def _set(stats, name: str, value) -> None:
     stats[STAT[name]] = value
 
 
+def _chunk_counters(stats, num_chunks: int) -> torch.Tensor:
+    return stats[len(STATS):len(STATS) + num_chunks]
+
+
 # --- checks and launch ----------------------------------------------------------
 
 def _cuda_device(t: torch.Tensor, who) -> torch.device:
@@ -107,12 +125,14 @@ def _cuda_device(t: torch.Tensor, who) -> torch.device:
     return t.device
 
 
-def _check(dev, t: torch.Tensor, dtype, shape, what: str) -> None:
+def _check(dev, t: torch.Tensor, dtype, shape, what: str,
+           align: int = 1) -> None:
     if (t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape)
-            or not t.is_contiguous()):
+            or not t.is_contiguous() or t.data_ptr() % align):
         raise ValueError(f"{what} must be a contiguous {dtype} "
-                         f"{tuple(shape)} on {dev}, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
+                         f"{tuple(shape)} on {dev}"
+                         + (f", {align}-byte aligned" if align > 1 else "")
+                         + f", got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _check_stats(dev, stats, num_chunks: int = 0) -> None:
@@ -148,74 +168,97 @@ def _dispatch(t: torch.Tensor, cuda_fn, plain_fn):
 
 # --- A: cells ---------------------------------------------------------------------
 
-def nbody_cells_plain(pos: torch.Tensor, alive: torch.Tensor,
-                      grid: GridSpec) -> torch.Tensor:
-    """Plain version of A: the sort key (N,) int32 of every slot."""
+def pack_records(pos, age, w, tags, ids=None) -> torch.Tensor:
+    """Each row's record (N, :data:`RECORD`) int32: the bits of x, y, z, w
+    and age, ``collision_okey`` of the tag, the id (``ids``, int32, or the
+    row) and 0; plain tensor code on any device."""
+    n = pos.shape[0]
+    ids = (torch.arange(n, dtype=torch.int32, device=pos.device)
+           if ids is None else ids.to(torch.int32))
+    bits = lambda t: t.view(torch.int32)
+    return torch.cat([bits(pos), bits(w)[:, None], bits(age)[:, None],
+                      collision_okey(tags)[:, None], ids[:, None],
+                      torch.zeros_like(ids)[:, None]], dim=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _l2_bytes(index: int) -> int:
+    return torch.cuda.get_device_properties(index).L2_cache_size
+
+
+def records_pay(n: int, device) -> bool:
+    """Whether a frame of ``n`` rows has A write records for C: where the
+    arrays C would gather from (:data:`GATHERED` bytes a row) outgrow the
+    card's L2 cache, so that each gather moves a sector of device memory;
+    below that the gathers hit the L2 and the record costs A more than it
+    saves C (``PERF.md`` §6).  Never on the CPU, where both routes are the
+    same plain code."""
+    device = torch.device(device)
+    return device.type == "cuda" and n * GATHERED > _l2_bytes(
+        device.index if device.index is not None
+        else torch.cuda.current_device())
+
+
+def nbody_cells_plain(pos: torch.Tensor, alive: torch.Tensor, age, w, tags,
+                      grid: GridSpec, records: bool = True):
+    """Plain version of A: (the sort key (N,) int32, the records
+    :func:`pack_records`, or None without ``records``) of every slot."""
     cell = coords_to_cell(wrap_positions(pos, grid)[1], grid)
-    return torch.where(alive, cell, grid.num_cells).to(torch.int32)
+    key = torch.where(alive, cell, grid.num_cells).to(torch.int32)
+    return key, pack_records(pos, age, w, tags) if records else None
 
 
-def nbody_cells_cuda(pos: torch.Tensor, alive: torch.Tensor,
-                     grid: GridSpec) -> torch.Tensor:
+def nbody_cells_cuda(pos: torch.Tensor, alive: torch.Tensor, age, w, tags,
+                     grid: GridSpec, records: bool = True):
     """Launch ``ps_nbody_cells``; same contract as the plain version."""
     dev = _cuda_device(pos, nbody_cells_cuda)
     n = pos.shape[0]
     _check(dev, pos, torch.float32, (n, 3), "pos")
     _check(dev, alive, torch.bool, (n,), "alive")
     key = torch.empty((n,), dtype=torch.int32, device=dev)
-    _launch("ps_nbody_cells", dev, pos.data_ptr(), alive.data_ptr(), n,
-            grid.grid_dim, as_f32(1.0 / grid.cell_size),
-            as_f32(grid.cell_size), key.data_ptr())
+    rec = None
+    if records:
+        _check(dev, age, torch.float32, (n,), "age")
+        _check(dev, w, torch.float32, (n,), "w")
+        _check(dev, tags, torch.int64, (n,), "tags")
+        rec = torch.empty((n, RECORD), dtype=torch.int32, device=dev)
+    ptr = lambda t: None if rec is None else t.data_ptr()
+    _launch("ps_nbody_cells", dev, pos.data_ptr(), alive.data_ptr(),
+            ptr(age), ptr(w), ptr(tags), n, grid.grid_dim,
+            as_f32(1.0 / grid.cell_size), as_f32(grid.cell_size),
+            key.data_ptr(), ptr(rec))
     count_launch(nbody_cells_cuda)
-    return key
+    return key, rec
 
 
 nbody_cells_cuda.launches = 0
 
 
-def nbody_cells(pos, alive, grid: GridSpec) -> torch.Tensor:
-    return _dispatch(pos, nbody_cells_cuda, nbody_cells_plain)(pos, alive,
-                                                                grid)
+def nbody_cells(pos, alive, age, w, tags, grid: GridSpec,
+                records: bool = True):
+    return _dispatch(pos, nbody_cells_cuda, nbody_cells_plain)(
+        pos, alive, age, w, tags, grid, records)
 
 
 # --- B: cell starts ---------------------------------------------------------------
 
-def cell_starts_plain(skey: torch.Tensor, num_cells: int,
-                      stats: torch.Tensor, grid: GridSpec | None = None
-                      ) -> torch.Tensor:
+def cell_starts_plain(skey: torch.Tensor, num_cells: int) -> torch.Tensor:
     """Plain version of B: ``starts`` (num_cells + 2,) int32 of the sorted
-    keys; ``stats``' largest cell and, given the cubic ``grid``, its
-    largest chunk."""
-    dev = skey.device
-    starts = torch.searchsorted(
-        skey, torch.arange(num_cells + 2, dtype=torch.int32, device=dev),
-        out_int32=True)
-    counts = (starts[1:num_cells + 1] - starts[:num_cells]).to(torch.int64)
-    _set(stats, "max_cell_occupancy", counts.max())
-    if grid is not None:
-        cd, cf = grid.chunk_dim, grid.chunk_factor
-        per_cell = counts.reshape(cf, cd, cf, cd, cf, cd)
-        _set(stats, "max_chunk_occupancy", per_cell.sum(dim=(1, 3, 5)).max())
-    return starts
+    keys."""
+    return torch.searchsorted(
+        skey, torch.arange(num_cells + 2, dtype=torch.int32,
+                           device=skey.device), out_int32=True)
 
 
-def cell_starts_cuda(skey: torch.Tensor, num_cells: int,
-                     stats: torch.Tensor, grid: GridSpec | None = None
-                     ) -> torch.Tensor:
-    """Launch ``ps_cell_starts``; same contract as the plain version
-    (``stats`` zeroed, as :func:`new_stats` makes it)."""
+def cell_starts_cuda(skey: torch.Tensor, num_cells: int) -> torch.Tensor:
+    """Launch ``ps_cell_starts``, one thread a sorted row; same contract as
+    the plain version."""
     dev = _cuda_device(skey, cell_starts_cuda)
     n = skey.shape[0]
     _check(dev, skey, torch.int32, (n,), "skey")
-    if grid is not None and grid.num_cells != num_cells:
-        raise ValueError(f"{num_cells} cells is not the grid's "
-                         f"{grid.num_cells}")
-    _check_stats(dev, stats, 0 if grid is None else grid.num_chunks)
     starts = torch.empty((num_cells + 2,), dtype=torch.int32, device=dev)
-    g, cd, cf = ((0, 0, 0) if grid is None else
-                 (grid.grid_dim, grid.chunk_dim, grid.chunk_factor))
     _launch("ps_cell_starts", dev, skey.data_ptr(), n, num_cells,
-            starts.data_ptr(), stats.data_ptr(), g, cd, cf)
+            starts.data_ptr())
     count_launch(cell_starts_cuda)
     return starts
 
@@ -223,9 +266,9 @@ def cell_starts_cuda(skey: torch.Tensor, num_cells: int,
 cell_starts_cuda.launches = 0
 
 
-def cell_starts(skey, num_cells: int, stats, grid: GridSpec | None = None):
-    return _dispatch(skey, cell_starts_cuda, cell_starts_plain)(
-        skey, num_cells, stats, grid)
+def cell_starts(skey, num_cells: int):
+    return _dispatch(skey, cell_starts_cuda, cell_starts_plain)(skey,
+                                                                num_cells)
 
 
 # --- C: block prepare -------------------------------------------------------------
@@ -238,14 +281,30 @@ def _layout(cfg: NBodyConfig, n: int, b: int, dims):
     return d1 * d2 * d3, d2, d1 * d2
 
 
-def block_prepare_plain(pos0, age0, w0, skey, order, starts,
-                        cfg: NBodyConfig, tags, stats, c_max: int, ch: int,
-                        b: int, dims=None, ids=None):
+class Fields(NamedTuple):
+    """A state's rows as C reads them without records: pos (N, 3) float32,
+    age, w (N,) float32, tags (N,) int64, ids (N,) int32 or None (the
+    row)."""
+
+    pos: torch.Tensor
+    age: torch.Tensor
+    w: torch.Tensor
+    tags: torch.Tensor
+    ids: torch.Tensor | None = None
+
+
+def block_prepare_plain(rows, skey, order, starts, cfg: NBodyConfig, stats,
+                        c_max: int, ch: int, b: int, dims=None,
+                        grid: GridSpec | None = None):
     """Plain version of C: (snap :class:`Snapshot`, chunks (NB, c_max, 4)
     int32 — columns (aligned_start, lo, hi, n_active) —, inv (N,) int32,
-    overflow_s (N,) bool) of the rows sorted by ``skey`` through ``order``;
-    ``stats``' dropped chunks.  ``dims``, ``ids`` as in
+    overflow_s (N,) bool) of the rows sorted by ``skey`` through
+    ``order``, their fields from ``rows``: the records
+    (:func:`pack_records`) or :class:`Fields`; ``stats``' dropped chunks
+    and largest cell, and, given the cubic ``grid``, each chunk's count
+    added to its counter.  ``dims`` as in
     ``ops/neighbor_blocks.prepare``."""
+    rec = pack_records(*rows) if isinstance(rows, Fields) else rows
     n = skey.shape[0]
     num_cells, row_stride, plane_stride = _layout(cfg, n, b, dims)
     dev = skey.device
@@ -254,12 +313,9 @@ def block_prepare_plain(pos0, age0, w0, skey, order, starts,
     starts = starts.to(torch.int64)
 
     iot = torch.arange(n, dtype=torch.int64, device=dev)
-    # neighbor-side collision window's upper edge (age <= life); the
-    # kid/dead/overflow gates ride the out-of-band coordinates below
-    cg_pre = torch.where(age0 <= as_f32(cfg.particle_life),
-                         collision_okey(tags), IMIN).to(torch.int32)
-    spos = pos0[order]
-    sage = age0[order]
+    srec = rec[order]
+    col = lambda k: srec[:, k].view(f32)
+    sage = col(4)
     # in-cell rank: distance to the first sorted row of the row's key
     # (``starts`` holds it for every key, and no key exceeds num_cells)
     rank = iot - starts[skey]
@@ -278,11 +334,22 @@ def block_prepare_plain(pos0, age0, w0, skey, order, starts,
     i1s = torch.where(coord_ok, (remq // row_stride).to(f32), bad_a)
     i2s = torch.where(coord_ok, (remq % row_stride).to(f32), bad_b)
     i3s = torch.where(coord_ok, i3q.to(f32), bad_a)
-    snap = Snapshot(
-        f=torch.stack([spos[:, 0], spos[:, 1], spos[:, 2], i1s, i2s, i3s,
-                       w0[order]]),
-        i=torch.stack([order.to(torch.int32) if ids is None
-                       else ids.to(torch.int32)[order], cg_pre[order]]))
+    # neighbor-side collision window's upper edge (age <= life); the
+    # kid/dead/overflow gates ride the out-of-band coordinates
+    cgid = torch.where(sage <= as_f32(cfg.particle_life), srec[:, 5], IMIN)
+    snap = Snapshot(f=torch.stack([col(0), col(1), col(2), i1s, i2s, i3s,
+                                   col(3)]),
+                    i=torch.stack([srec[:, 6], cgid.to(torch.int32)]))
+
+    # the counts: the largest cell, each chunk's rows
+    counts = starts[1:num_cells + 1] - starts[:num_cells]
+    k = STAT["max_cell_occupancy"]
+    stats[k] = torch.maximum(stats[k], counts.max())
+    if grid is not None:
+        cd, cf = grid.chunk_dim, grid.chunk_factor
+        _chunk_counters(stats, grid.num_chunks).add_(
+            counts.reshape(cf, cd, cf, cd, cf, cd).sum(dim=(1, 3, 5))
+            .reshape(-1))
 
     # ---- per-block neighbor ranges --------------------------------------
     # A block's valid sorted cells are the contiguous [cmin, cmax].  For
@@ -342,40 +409,53 @@ def block_prepare_plain(pos0, age0, w0, skey, order, starts,
     return snap, chunks, inv, overflow_s
 
 
-def block_prepare_cuda(pos0, age0, w0, skey, order, starts,
-                       cfg: NBodyConfig, tags, stats, c_max: int, ch: int,
-                       b: int, dims=None, ids=None):
-    """Launch ``ps_block_prepare``, one CTA a block of ``b`` sorted rows;
-    same contract as the plain version."""
+def block_prepare_cuda(rows, skey, order, starts, cfg: NBodyConfig, stats,
+                       c_max: int, ch: int, b: int, dims=None,
+                       grid: GridSpec | None = None):
+    """Launch ``ps_block_prepare``, one CTA a block of ``b`` sorted rows
+    (``b`` a multiple of :data:`C_ROWS`), on the records or the state's
+    arrays; same contract as the plain version."""
     dev = _cuda_device(skey, block_prepare_cuda)
     n = skey.shape[0]
     num_cells, row_stride, plane_stride = _layout(cfg, n, b, dims)
-    if c_max <= 0 or ch <= 0:
-        raise ValueError(f"unsupported chunk budget c_max={c_max} ch={ch}")
-    _check(dev, pos0, torch.float32, (n, 3), "pos0")
-    _check(dev, age0, torch.float32, (n,), "age0")
-    _check(dev, w0, torch.float32, (n,), "w0")
-    _check(dev, tags, torch.int64, (n,), "tags")
-    _check(dev, skey, torch.int32, (n,), "skey")
-    _check(dev, order, torch.int64, (n,), "order")
+    if c_max <= 0 or ch <= 0 or b % C_ROWS:
+        raise ValueError(f"unsupported chunk budget c_max={c_max} ch={ch} "
+                         f"or block size {b}")
+    if isinstance(rows, Fields):
+        _check(dev, rows.pos, torch.float32, (n, 3), "pos")
+        _check(dev, rows.age, torch.float32, (n,), "age")
+        _check(dev, rows.w, torch.float32, (n,), "w")
+        _check(dev, rows.tags, torch.int64, (n,), "tags")
+        ids = rows.ids
+        if ids is not None:
+            ids = ids.to(torch.int32).contiguous()
+            _check(dev, ids, torch.int32, (n,), "ids")
+        ptrs = (None, rows.pos.data_ptr(), rows.age.data_ptr(),
+                rows.w.data_ptr(), rows.tags.data_ptr(),
+                None if ids is None else ids.data_ptr())
+    else:
+        _check(dev, rows, torch.int32, (n, RECORD), "records", align=32)
+        ptrs = (rows.data_ptr(), None, None, None, None, None)
+    _check(dev, skey, torch.int32, (n,), "skey", align=16)
+    _check(dev, order, torch.int64, (n,), "order", align=16)
     _check(dev, starts, torch.int32, (num_cells + 2,), "starts")
-    _check_stats(dev, stats)
-    if ids is not None:
-        ids = ids.to(torch.int32).contiguous()
-        _check(dev, ids, torch.int32, (n,), "ids")
+    if grid is not None and grid.num_cells != num_cells:
+        raise ValueError(f"{num_cells} cells is not the grid's "
+                         f"{grid.num_cells}")
+    _check_stats(dev, stats, 0 if grid is None else grid.num_chunks)
     f = torch.empty((7, n), dtype=torch.float32, device=dev)
     i = torch.empty((2, n), dtype=torch.int32, device=dev)
     chunks = torch.empty((n // b, c_max, 4), dtype=torch.int32, device=dev)
     inv = torch.empty((n,), dtype=torch.int32, device=dev)
     overflow_s = torch.empty((n,), dtype=torch.bool, device=dev)
     offs = np.asarray(stencil_offsets(row_stride, plane_stride), np.int32)
-    _launch("ps_block_prepare", dev, pos0.data_ptr(), age0.data_ptr(),
-            w0.data_ptr(), tags.data_ptr(),
-            None if ids is None else ids.data_ptr(), skey.data_ptr(),
+    g, cd, cf = ((0, 0, 0) if grid is None else
+                 (grid.grid_dim, grid.chunk_dim, grid.chunk_factor))
+    _launch("ps_block_prepare", dev, *ptrs, skey.data_ptr(),
             order.data_ptr(), starts.data_ptr(), n, b, num_cells,
             row_stride, plane_stride, offs.ctypes.data, cfg.cell_capacity,
-            as_f32(cfg.kid_age), as_f32(cfg.particle_life), c_max, ch,
-            f.data_ptr(), i.data_ptr(), chunks.data_ptr(), inv.data_ptr(),
+            as_f32(cfg.kid_age), as_f32(cfg.particle_life), c_max, ch, g, cd,
+            cf, f.data_ptr(), i.data_ptr(), chunks.data_ptr(), inv.data_ptr(),
             overflow_s.data_ptr(), stats.data_ptr())
     count_launch(block_prepare_cuda)
     return Snapshot(f, i), chunks, inv, overflow_s
@@ -384,12 +464,12 @@ def block_prepare_cuda(pos0, age0, w0, skey, order, starts,
 block_prepare_cuda.launches = 0
 
 
-def block_prepare(pos0, age0, w0, skey, order, starts, cfg: NBodyConfig,
-                  tags, stats, c_max: int, ch: int, b: int, dims=None,
-                  ids=None):
+def block_prepare(rows, skey, order, starts, cfg: NBodyConfig, stats,
+                  c_max: int, ch: int, b: int, dims=None,
+                  grid: GridSpec | None = None):
     return _dispatch(skey, block_prepare_cuda, block_prepare_plain)(
-        pos0, age0, w0, skey, order, starts, cfg, tags, stats, c_max, ch, b,
-        dims=dims, ids=ids)
+        rows, skey, order, starts, cfg, stats, c_max, ch, b, dims=dims,
+        grid=grid)
 
 
 class Prepared(NamedTuple):
@@ -405,23 +485,35 @@ class Prepared(NamedTuple):
     stats: torch.Tensor        # the frame's statistics buffer
 
 
-def sort_and_prepare(key, pos0, age0, w0, tags, cfg: NBodyConfig,
-                     c_max: int, ch: int, b: int, grid: GridSpec | None = None,
-                     dims=None, ids=None) -> Prepared:
+def cells_and_rows(state: ParticleState, grid: GridSpec):
+    """A on ``state``, with records where they pay (:func:`records_pay`):
+    (the sort keys, the rows C reads: the records or the state's
+    :class:`Fields`)."""
+    records = records_pay(state.slots, state.device)
+    key, rec = nbody_cells(state.pos, state.alive, state.age, state.w,
+                           state.tag, grid, records)
+    return key, rec if records else Fields(state.pos, state.age, state.w,
+                                           state.tag)
+
+
+def sort_and_prepare(key, rows, cfg: NBodyConfig, c_max: int, ch: int,
+                     b: int, grid: GridSpec | None = None,
+                     dims=None) -> Prepared:
     """The stable sort of the int32 sort keys ``key`` (A's, or ``alive ?
-    cell : num_cells`` of the caller's cells), then B and C: the pair
-    kernel's inputs.  The statistics buffer is made here, zeroed, with the
-    chunk counters B needs for the largest chunk of the cubic ``grid``
-    (none without it); D and E add to it.  ``dims``, ``ids`` as in
+    cell : num_cells`` of the caller's cells), then B and C on ``rows``
+    (A's records, or :class:`Fields`): the pair kernel's inputs.  The
+    statistics buffer is made here, zeroed, with the chunk counters C adds
+    the cubic ``grid``'s chunks into (none without it); D reduces them and
+    adds to it, and so does E.  ``dims`` as in
     ``ops/neighbor_blocks.prepare``."""
     num_cells = _layout(cfg, key.shape[0], b, dims)[0]
     # int32 keys: the same stable order as int64 ones in half the passes
     skey, order = torch.sort(key, stable=True)
     stats = new_stats(key.device, 0 if grid is None else grid.num_chunks)
-    starts = cell_starts(skey, num_cells, stats, grid)
+    starts = cell_starts(skey, num_cells)
     snap, chunks, inv, overflow_s = block_prepare(
-        pos0, age0, w0, skey, order, starts, cfg, tags, stats, c_max, ch, b,
-        dims=dims, ids=ids)
+        rows, skey, order, starts, cfg, stats, c_max, ch, b, dims=dims,
+        grid=grid)
     return Prepared(snap, chunks, inv, overflow_s, order, starts, stats)
 
 
@@ -499,9 +591,10 @@ def nbody_lifecycle_plain(state: ParticleState, out: ParticleState, acc_s,
     """Plain version of D: the pair kernel's sorted outputs (acc_s (3, N),
     gmax_s, overflow_s) read through ``inv``, the mine-side collision age
     window, :func:`lifecycle_flags`; the next state (before the spawn)
-    written into ``out`` (which may be ``state``), ``stats``' counts.
-    Returns (flags (N,) uint8, 1 explode and 2 free; tiles (ceil(N/TILE),
-    2) int32, the explode and free counts of each tile)."""
+    written into ``out`` (which may be ``state``), ``stats``' counts, and
+    its largest chunk from the chunk counters of ``cfg.grid``, which are
+    left zero.  Returns (flags (N,) uint8, 1 explode and 2 free; tiles
+    (ceil(N/TILE), 2) int32, the explode and free counts of each tile)."""
     rows = inv.to(torch.int64)
     acc = acc_s.T[rows]
     gmax = gmax_s[rows]
@@ -517,6 +610,9 @@ def nbody_lifecycle_plain(state: ParticleState, out: ParticleState, acc_s,
     for name, v in counts.items():
         _add(stats, name, v)
     _add(stats, "n_alive", nxt.alive.sum(dtype=torch.int64))
+    counters = _chunk_counters(stats, cfg.grid.num_chunks)
+    _set(stats, "max_chunk_occupancy", counters.max())
+    counters.zero_()
     free = ~nxt.alive
     flags = explode.to(torch.uint8) | (free.to(torch.uint8) << 1)
     return flags, _tile_counts(explode, free)
@@ -525,8 +621,8 @@ def nbody_lifecycle_plain(state: ParticleState, out: ParticleState, acc_s,
 def nbody_lifecycle_cuda(state: ParticleState, out: ParticleState, acc_s,
                          gmax_s, overflow_s, inv, uvec, cfg: NBodyConfig,
                          stats):
-    """Launch ``ps_nbody_lifecycle``, one thread a slot; same contract as
-    the plain version."""
+    """Launch ``ps_nbody_lifecycle``, one thread a slot (its block 0 also
+    reduces the chunk counters); same contract as the plain version."""
     dev = _cuda_device(state.pos, nbody_lifecycle_cuda)
     n = state.slots
     _check_state(dev, state, n, "state")
@@ -536,10 +632,10 @@ def nbody_lifecycle_cuda(state: ParticleState, out: ParticleState, acc_s,
     _check(dev, overflow_s, torch.bool, (n,), "overflow_s")
     _check(dev, inv, torch.int32, (n,), "inv")
     _check(dev, uvec, torch.float32, (n, 3), "uvec")
-    _check_stats(dev, stats)
+    g = cfg.grid
+    _check_stats(dev, stats, g.num_chunks)
     flags = torch.empty((n,), dtype=torch.uint8, device=dev)
     tiles = torch.empty((-(-n // TILE), 2), dtype=torch.int32, device=dev)
-    g = cfg.grid
     consts = np.asarray([cfg.dt, cfg.particle_life, cfg.kid_age, cfg.max_dx,
                          cfg.max_v, cfg.explosion_speed, 1.0 / g.cell_size,
                          g.cell_size], np.float32)
@@ -553,7 +649,8 @@ def nbody_lifecycle_cuda(state: ParticleState, out: ParticleState, acc_s,
             ctypes.addressof(bools), ctypes.addressof(tags), acc_s.data_ptr(),
             gmax_s.data_ptr(), overflow_s.data_ptr(), inv.data_ptr(),
             uvec.data_ptr(), n, consts.ctypes.data, g.grid_dim,
-            flags.data_ptr(), tiles.data_ptr(), stats.data_ptr())
+            g.num_chunks, flags.data_ptr(), tiles.data_ptr(),
+            stats.data_ptr())
     count_launch(nbody_lifecycle_cuda)
     return flags, tiles
 

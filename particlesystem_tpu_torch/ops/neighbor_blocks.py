@@ -76,8 +76,8 @@ def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, tags,
     """Sort by cell and build the kernel inputs: the sort key ``alive ?
     cell : num_cells`` (int32) through
     :func:`~.frame_kernels.sort_and_prepare` (the stable sort, then B and
-    C: the CUDA kernels for CUDA tensors and their plain versions for CPU
-    ones).
+    C, which gathers the rows' fields from the arrays given: the CUDA
+    kernels for CUDA tensors and their plain versions for CPU ones).
 
     ``tags`` are the persistent particle tags whose :func:`collision_okey`
     orders kill/survive.  ``dims = (d1, d2, d3)`` generalises the cubic
@@ -102,8 +102,8 @@ def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, tags,
     d1, d2, d3 = dims or (g, g, g)
     num_cells = d1 * d2 * d3
     key = torch.where(alive, cell.to(torch.int32), num_cells)
-    p = fk.sort_and_prepare(key, pos0, age0, w0, tags, cfg, c_max, ch, b,
-                            dims=dims, ids=ids)
+    p = fk.sort_and_prepare(key, fk.Fields(pos0, age0, w0, tags, ids), cfg,
+                            c_max, ch, b, dims=dims)
     counts = (p.starts[1:] - p.starts[:-1]).to(torch.int64)
     return (p.snap, p.chunks, p.order, p.overflow_s,
             p.stats[fk.STAT["max_cell_occupancy"]], counts,

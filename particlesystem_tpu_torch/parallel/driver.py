@@ -21,8 +21,8 @@ provides:
   assembled on the host and redistributed;
 * ``validate``: the production step against the numpy oracle, shard-local
   (each rank joins its own alive rows to the oracle's by persistent tag);
-* ``profile_frame``: the frame's time, median of runs (CUDA events on a
-  card);
+* ``profile_frame``: the frame's time, the median of slopes between runs
+  of ``k1`` and ``k2`` frames (CUDA events on a card);
 * ``autosize_buffers``: halo and migration capacities from measured
   high-water marks.
 """
@@ -34,7 +34,6 @@ import dataclasses
 import json
 import math
 import os
-import time
 import warnings
 from typing import Optional
 
@@ -45,7 +44,7 @@ from ..core.config import NBodyConfig
 from ..core.state import FIELDS, ParticleState, state_from_numpy, zero_state
 from ..models import nbody
 from ..runtime import checkpoint
-from ..utils.timers import PhaseTimers
+from ..utils.timers import PhaseTimers, slope_ms
 from .mesh import default_mesh, rank_device
 from .nbody_brick import BrickSpec
 from .nbody_pencil import PencilSpec
@@ -301,30 +300,24 @@ class DistributedNBodySimulation:
                 "local_alive": n_local}
 
     # -- profiling ------------------------------------------------------------
-    def profile_frame(self, reps: int = 5) -> dict:
-        """The frame's milliseconds: the median of ``reps`` frames, each
-        run from the current state after one warm-up frame and timed with
-        CUDA events on a card (the host clock on the CPU).  The sharded
-        step is the unit: its stages are the single-device driver's
-        (``api.NBodySimulation.profile_frame``) plus the exchanges.
-        Collective; does not advance the state."""
-        cuda = self.device.type == "cuda"
-        self._step(self.state, self.frame)
-        times = []
-        for _ in range(max(1, reps)):
-            if cuda:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                self._step(self.state, self.frame)
-                end.record()
-                end.synchronize()
-                times.append(start.elapsed_time(end))
-            else:
-                t0 = time.perf_counter()
-                self._step(self.state, self.frame)
-                times.append((time.perf_counter() - t0) * 1e3)
-        ms = float(np.median(times))
+    def profile_frame(self, k1: int = 2, k2: int = 6, reps: int = 3) -> dict:
+        """The frame's milliseconds: the median of ``reps`` slopes between
+        runs of ``k1`` and ``k2`` frames from the current state, after a
+        warm-up run of ``k1`` (``utils/timers.slope_ms``: CUDA events on a
+        card, the host clock on the CPU), so that a run's fixed cost
+        cancels.  The sharded step is the unit: its stages are the
+        single-device driver's (``api.NBodySimulation.profile_frame``) plus
+        the exchanges.  Collective; does not advance the state."""
+        if not 0 < k1 < k2:
+            raise ValueError(f"need 0 < k1 < k2, got k1={k1} k2={k2}")
+
+        def run_k(k):
+            s = self.state
+            for i in range(k):
+                s, _ = self._step(s, self.frame + i)
+
+        run_k(k1)
+        ms = slope_ms(run_k, k1, k2, max(1, reps), self.device)
         self.timers.totals["frame/full_frame"] += ms / 1e3
         self.timers.counts["frame/full_frame"] += 1
         return {"full_frame": ms}

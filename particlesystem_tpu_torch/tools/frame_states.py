@@ -10,10 +10,11 @@ hold each kernel to its plain version on them.
   ``prepare``: a non-cubic grid, explicit ids and -1-id padding rows.
 * :func:`hold_kernels` — on a card, A-E each against its plain version on
   the inputs one frame of a state gives it, bit for bit (every field,
-  mask, tag, flag, tile count and statistic), D and E both into a fresh
-  state and in place; :func:`hold_prepare` B and C on ``prepare``'s
-  inputs; :func:`hold_frames` whole frames of ``nbody.step`` against
-  :func:`plain_frame`, the frame composed of the plain versions.
+  record, mask, tag, flag, tile count and statistic; A and C with records
+  and without), D and E both into a fresh state and in place;
+  :func:`hold_prepare` B and C on ``prepare``'s inputs; :func:`hold_frames`
+  whole frames of ``nbody.step`` against :func:`plain_frame`, the frame
+  composed of the plain versions.
 
 ``chip_smoke.py`` (phase 15) runs the checks at full width and on these
 states; ``tests/test_torch_frame_kernels.py`` holds the plain versions to
@@ -171,32 +172,57 @@ def stats_dict(stats: torch.Tensor) -> dict:
     return dict(zip(fk.STATS, stats[:len(fk.STATS)].tolist()))
 
 
+def _same_prepare(got, want, what: str) -> None:
+    """C's outputs (snap, chunks, inv, overflow_s) bit for bit."""
+    for name, a, b in zip(("snap.f", "snap.i", "chunks", "inv",
+                           "overflow_s"),
+                          (got[0].f, got[0].i) + tuple(got[1:]),
+                          (want[0].f, want[0].i) + tuple(want[1:])):
+        _same(a, b, f"{what} {name}")
+
+
+def _hold_c(cfg, rec, fields, skey, order, starts, c_max, num_chunks,
+            dims=None, grid=None):
+    """C on the records and its plain version, then C on the state's
+    arrays ``fields``, all on the same inputs; returns (C's outputs, its
+    statistics, the plain version's statistics)."""
+    dev = skey.device
+    sk, sp, sv = (fk.new_stats(dev, num_chunks) for _ in range(3))
+    args = (skey, order, starts, cfg)
+    tail = (c_max, nbk.CH, nbk.B)
+    ck = fk.block_prepare_cuda(rec, *args, sk, *tail, dims=dims, grid=grid)
+    cp = fk.block_prepare_plain(rec, *args, sp, *tail, dims=dims, grid=grid)
+    _same_prepare(ck, cp, "C")
+    _same(sk, sp, "C stats")
+    cv = fk.block_prepare_cuda(fields, *args, sv, *tail, dims=dims,
+                               grid=grid)
+    _same_prepare(cv, ck, "C without records:")
+    _same(sv, sk, "C without records: stats")
+    return ck, sk, sp
+
+
 def hold_kernels(cfg: NBodyConfig, state: ParticleState, frame,
                  c_max: int | None = None) -> dict:
     """A-E against their plain versions, each on the same inputs, at one
-    frame of ``state`` (CUDA tensors): bit for bit; the pair kernel runs
-    once, on C's outputs.  Returns the frame's statistics."""
+    frame of ``state`` (CUDA tensors): bit for bit, A and C with records
+    and without; the pair kernel runs once, on C's outputs.  Returns the
+    frame's statistics."""
     grid = cfg.grid
     c_max = nbk.C_MAX if c_max is None else c_max
     uvec, fert = nbody.frame_fields(cfg, frame, state.tag)
-    key = fk.nbody_cells_cuda(state.pos, state.alive, grid)
-    _same(key, fk.nbody_cells_plain(state.pos, state.alive, grid), "A key")
+    a_args = (state.pos, state.alive, state.age, state.w, state.tag, grid)
+    key, rec = fk.nbody_cells_cuda(*a_args)
+    key_p, rec_p = fk.nbody_cells_plain(*a_args)
+    _same(key, key_p, "A key")
+    _same(rec, rec_p, "A records")
+    _same(fk.nbody_cells_cuda(*a_args, records=False)[0], key_p,
+          "A key without records")
     skey, order = torch.sort(key, stable=True)
-    sk, sp = (fk.new_stats(state.device, grid.num_chunks) for _ in range(2))
-    starts = fk.cell_starts_cuda(skey, grid.num_cells, sk, grid)
-    _same(starts, fk.cell_starts_plain(skey, grid.num_cells, sp, grid),
-          "B starts")
-    _same(sk, sp, "B stats")
-    args = (state.pos, state.age, state.w, skey, order, starts, cfg,
-            state.tag)
-    ck = fk.block_prepare_cuda(*args, sk, c_max, nbk.CH, nbk.B)
-    cp = fk.block_prepare_plain(*args, sp, c_max, nbk.CH, nbk.B)
-    for what, a, b in zip(("snap.f", "snap.i", "chunks", "inv",
-                           "overflow_s"),
-                          (ck[0].f, ck[0].i) + tuple(ck[1:]),
-                          (cp[0].f, cp[0].i) + tuple(cp[1:])):
-        _same(a, b, f"C {what}")
-    _same(sk, sp, "C stats")
+    starts = fk.cell_starts_cuda(skey, grid.num_cells)
+    _same(starts, fk.cell_starts_plain(skey, grid.num_cells), "B starts")
+    fields = fk.Fields(state.pos, state.age, state.w, state.tag)
+    ck, sk, sp = _hold_c(cfg, rec, fields, skey, order, starts, c_max,
+                         grid.num_chunks, grid=grid)
     acc_s, gmax_s = nbk.kernel_call(cfg, ck[0], ck[1])
     outs = []
     for lifecycle, spawn, stats in (
@@ -227,7 +253,8 @@ def hold_prepare(cfg: NBodyConfig, args, dims=None, ids=None,
                  c_max: int | None = None) -> dict:
     """B and C against their plain versions on ``prepare``'s inputs
     ``args`` = (pos, age, w, cell, alive, tags) (CUDA tensors), with
-    ``dims`` and ``ids`` as the decomposed step passes them.  Returns the
+    ``dims`` and ``ids`` as the decomposed step passes them, C on the
+    arrays (as ``prepare`` runs it) and on records.  Returns the
     statistics."""
     pos, age, w, cell, alive, tags = args
     g = cfg.grid.grid_dim
@@ -236,37 +263,32 @@ def hold_prepare(cfg: NBodyConfig, args, dims=None, ids=None,
     c_max = nbk.C_MAX if c_max is None else c_max
     key = torch.where(alive, cell.to(torch.int32), num_cells)
     skey, order = torch.sort(key, stable=True)
-    sk, sp = fk.new_stats(pos.device), fk.new_stats(pos.device)
-    starts = fk.cell_starts_cuda(skey, num_cells, sk)
-    _same(starts, fk.cell_starts_plain(skey, num_cells, sp), "B starts")
-    c_args = (pos, age, w, skey, order, starts, cfg, tags)
-    ck = fk.block_prepare_cuda(*c_args, sk, c_max, nbk.CH, nbk.B,
-                               dims=dims, ids=ids)
-    cp = fk.block_prepare_plain(*c_args, sp, c_max, nbk.CH, nbk.B,
-                                dims=dims, ids=ids)
-    for what, a, b in zip(("snap.f", "snap.i", "chunks", "inv",
-                           "overflow_s"),
-                          (ck[0].f, ck[0].i) + tuple(ck[1:]),
-                          (cp[0].f, cp[0].i) + tuple(cp[1:])):
-        _same(a, b, f"C {what}")
-    _same(sk, sp, "B and C stats")
+    starts = fk.cell_starts_cuda(skey, num_cells)
+    _same(starts, fk.cell_starts_plain(skey, num_cells), "B starts")
+    rec = fk.pack_records(pos, age, w, tags, ids)
+    _, sk, _ = _hold_c(cfg, rec, fk.Fields(pos, age, w, tags, ids), skey,
+                       order, starts, c_max, 0, dims=dims)
     return stats_dict(sk)
 
 
 def plain_frame(state: ParticleState, out: ParticleState, uvec, fert,
-                frame, cfg: NBodyConfig) -> torch.Tensor:
+                frame, cfg: NBodyConfig,
+                c_max: int | None = None) -> torch.Tensor:
     """The blocks frame composed of the plain versions of A-E around the
-    pair kernel, on any device: what ``nbody.blocks_frame`` is held to.
+    pair kernel, on any device: what ``nbody.blocks_frame`` is held to
+    (which takes the module's chunk budget, the default of ``c_max``).
     Writes the next state into ``out`` and returns the statistics
     buffer."""
     grid = cfg.grid
-    key = fk.nbody_cells_plain(state.pos, state.alive, grid)
+    c_max = nbk.C_MAX if c_max is None else c_max
+    key, rec = fk.nbody_cells_plain(state.pos, state.alive, state.age,
+                                    state.w, state.tag, grid)
     skey, order = torch.sort(key, stable=True)
     stats = fk.new_stats(state.device, grid.num_chunks)
-    starts = fk.cell_starts_plain(skey, grid.num_cells, stats, grid)
+    starts = fk.cell_starts_plain(skey, grid.num_cells)
     snap, chunks, inv, overflow_s = fk.block_prepare_plain(
-        state.pos, state.age, state.w, skey, order, starts, cfg, state.tag,
-        stats, nbk.C_MAX, nbk.CH, nbk.B)
+        rec, skey, order, starts, cfg, stats, c_max, nbk.CH, nbk.B,
+        grid=grid)
     acc_s, gmax_s = nbk.kernel_call(cfg, snap, chunks)
     flags, tiles = fk.nbody_lifecycle_plain(state, out, acc_s, gmax_s,
                                             overflow_s, inv, uvec, cfg, stats)

@@ -124,16 +124,17 @@ def load_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     i, f, n = ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     fn = lib.ps_nbody_cells
-    fn.argtypes = [_P, _P, n, i, f, f, _P, _P]
+    fn.argtypes = [_P] * 5 + [n, i, f, f, _P, _P, _P]
     fn.restype = ctypes.c_int
     fn = lib.ps_cell_starts
-    fn.argtypes = [_P, n, i, _P, _P, i, i, i, _P]
+    fn.argtypes = [_P, n, i, _P, _P]
     fn.restype = ctypes.c_int
     fn = lib.ps_block_prepare
-    fn.argtypes = [_P] * 8 + [n, i, i, i, i, _P, i, f, f, i, i] + [_P] * 7
+    fn.argtypes = [_P] * 9 + [n, i, i, i, i, _P, i, f, f, i, i, i, i, i] + [
+        _P] * 7
     fn.restype = ctypes.c_int
     fn = lib.ps_nbody_lifecycle
-    fn.argtypes = [_P] * 8 + [n, _P, i, _P, _P, _P, _P]
+    fn.argtypes = [_P] * 8 + [n, _P, i, i, _P, _P, _P, _P]
     fn.restype = ctypes.c_int
     fn = lib.ps_nbody_spawn
     fn.argtypes = [_P] * 8 + [n, i, f, _P, _P, _P, _P]

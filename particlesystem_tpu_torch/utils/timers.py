@@ -13,7 +13,10 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Callable, Dict
+
+import numpy as np
+import torch
 
 
 class PhaseTimers:
@@ -45,3 +48,33 @@ class PhaseTimers:
                  f"({d['mean_ms']:.3f} ms avg)"
                  for n, d in sorted(self.summary().items())]
         return "\n".join(lines)
+
+
+def device_ms(fn: Callable[[], object], device: torch.device) -> float:
+    """Milliseconds of ``fn()``: CUDA events around it on a card, so the
+    device's time from the first queued launch to the last; the host clock
+    on the CPU, where every op is done when it returns."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def slope_ms(run_k: Callable[[int], object], k_short: int, k_long: int,
+             reps: int, device: torch.device) -> float:
+    """Median over ``reps`` of the per-frame slope between ``run_k(
+    k_short)`` and ``run_k(k_long)``, each timed on its own
+    (:func:`device_ms`): the fixed cost of a run cancels."""
+    samples = []
+    for _ in range(reps):
+        t_short = device_ms(lambda: run_k(k_short), device)
+        t_long = device_ms(lambda: run_k(k_long), device)
+        samples.append((t_long - t_short) / (k_long - k_short))
+    return float(np.median(samples))

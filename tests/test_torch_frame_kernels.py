@@ -8,10 +8,13 @@ spawn burst past the budget, no free slot, the tags 0x80000000 and
 all-dead blocks, a 2-chunk budget that drops chunks, a non-cubic grid
 with ids and -1 padding, the frame as a 0-dim tensor.
 
-* A against ``grid.wrap_positions`` + ``coords_to_cell``: exact.
+* A against ``grid.wrap_positions`` + ``coords_to_cell``: exact; its
+  records' fields (the state's bits, ``neighbor_blocks.collision_okey`` of
+  the tag, the slot) exact.
 * B + C against ``neighbor_blocks.prepare`` (jitted): the order, snapshot,
-  chunk table, overflow, counts, maxima and dropped chunks exact; ``inv``
-  the inverse of the order.
+  chunk table, overflow, counts, the largest cell, each chunk's count and
+  the dropped chunks exact; ``inv`` the inverse of the order; the largest
+  chunk after D, and the frame's three counts, exact.
 * D + E against ``neighbor_blocks.unsort_outputs``, the mine-side window
   and ``models/nbody.lifecycle_update``, run op by op, given the same
   sorted pair outputs: the port's plain pair, and on one state the JAX
@@ -25,6 +28,7 @@ card (it skips here).
 
 import dataclasses
 import functools
+from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
@@ -63,10 +67,10 @@ def sorted_inputs(case):
     """The port's A, then the sort, B and C (``sort_and_prepare``) on
     ``case``: the plain versions, on the CPU."""
     cfg, st = case.cfg, case.state
-    key = fk.nbody_cells(st.pos, st.alive, cfg.grid)
-    p = fk.sort_and_prepare(key, st.pos, st.age, st.w, st.tag, cfg,
-                            case.c_max or tnbk.C_MAX, tnbk.CH, tnbk.B,
-                            grid=cfg.grid)
+    key, rec = fk.nbody_cells(st.pos, st.alive, st.age, st.w, st.tag,
+                              cfg.grid)
+    p = fk.sort_and_prepare(key, rec, cfg, case.c_max or tnbk.C_MAX,
+                            tnbk.CH, tnbk.B, grid=cfg.grid)
     return (key, p.order, p.starts, p.snap, p.chunks, p.inv, p.overflow_s,
             p.stats)
 
@@ -84,9 +88,104 @@ def test_cells_match_jax(name):
     cell = jgrid.coords_to_cell(jgrid.wrap_positions(jnp.asarray(pos), g)[1],
                                 g)
     want = np.where(alive, np.asarray(cell), g.num_cells)
-    got = fk.nbody_cells(torch.from_numpy(pos), case.state.alive, g)
+    st = case.state
+    got, _ = fk.nbody_cells(torch.from_numpy(pos), st.alive, st.age, st.w,
+                            st.tag, g)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@lru_cache(maxsize=None)
+def jax_prepared(name):
+    """The JAX package's ``prepare`` (jitted) on edge state ``name``."""
+    case = STATES[name]
+    jcfg = jax_cfg(case.cfg)
+    js = jax_state(case.state)
+    cell = jgrid.coords_to_cell(jgrid.wrap_positions(js.pos, jcfg.grid)[1],
+                                jcfg.grid)
+    out = jax.jit(functools.partial(jnbk.prepare, cfg=jcfg,
+                                    c_max=case.c_max))(
+        js.pos, js.age, js.w, cell, js.alive, tags=js.tag)
+    return jax.tree.map(np.asarray, out)
+
+
+def jax_chunk_counts(case, counts):
+    """Each chunk's rows, from the JAX package's per-cell counts."""
+    cd, cf = case.cfg.grid.chunk_dim, case.cfg.grid.chunk_factor
+    per_cell = counts[:case.cfg.grid.num_cells]
+    return per_cell.reshape(cf, cd, cf, cd, cf, cd).sum(axis=(1, 3, 5))
+
+
+@pytest.mark.parametrize("name", sorted(STATES))
+def test_records_match_jax(name):
+    """A's records (plain version): each slot's x, y, z, w and age bits,
+    the JAX package's collision key of its tag, the slot and 0; the same
+    packed by ``pack_records`` with ids."""
+    case = STATES[name]
+    st = case.state
+    _, rec = fk.nbody_cells(st.pos, st.alive, st.age, st.w, st.tag,
+                            case.cfg.grid)
+    assert rec.dtype == torch.int32 and rec.shape == (st.slots, fk.RECORD)
+    rec = rec.numpy()
+    n = st.slots
+    bits = lambda t: t.numpy().view(np.int32)
+    np.testing.assert_array_equal(rec[:, 0:3], bits(st.pos))
+    np.testing.assert_array_equal(rec[:, 3], bits(st.w))
+    np.testing.assert_array_equal(rec[:, 4], bits(st.age))
+    okey = np.asarray(jnbk.collision_okey(jax_state(st).tag))
+    np.testing.assert_array_equal(rec[:, 5], okey)
+    np.testing.assert_array_equal(rec[:, 6], np.arange(n))
+    assert not rec[:, 7].any()
+    ids = torch.from_numpy(np.random.default_rng(2).permutation(n)
+                           .astype(np.int32))
+    packed = fk.pack_records(st.pos, st.age, st.w, st.tag, ids).numpy()
+    np.testing.assert_array_equal(packed[:, 6], ids.numpy())
+    np.testing.assert_array_equal(np.delete(packed, 6, 1),
+                                  np.delete(rec, 6, 1))
+    # without records A gives the keys alone, and the CPU never asks
+    key, none = fk.nbody_cells(st.pos, st.alive, st.age, st.w, st.tag,
+                               case.cfg.grid, records=False)
+    assert none is None and torch.equal(key, fk.nbody_cells(
+        st.pos, st.alive, st.age, st.w, st.tag, case.cfg.grid)[0])
+    assert not fk.records_pay(st.slots, "cpu")
+
+
+@pytest.mark.parametrize("name", ["tags", "overflow"])
+def test_prepare_on_records_equals_prepare_on_the_arrays(name):
+    """C (plain) on A's records and on the state's arrays: the same
+    snapshot, chunk table, inverse, overflow and statistics."""
+    case = STATES[name]
+    st, grid = case.state, case.cfg.grid
+    key, rec = fk.nbody_cells(st.pos, st.alive, st.age, st.w, st.tag, grid)
+    outs = [fk.sort_and_prepare(key, rows, case.cfg, tnbk.C_MAX, tnbk.CH,
+                                tnbk.B, grid=grid)
+            for rows in (rec, fk.Fields(st.pos, st.age, st.w, st.tag))]
+    bits = lambda t: t.view(torch.int32) if t.is_floating_point() else t
+    (sa, *ra), (sb, *rb) = outs
+    for x, y in zip((sa.f, sa.i, *ra), (sb.f, sb.i, *rb)):
+        assert torch.equal(bits(x), bits(y))
+
+
+@pytest.mark.parametrize("name", sorted(STATES))
+def test_frame_counts_match_jax(name):
+    """The counts that moved from B into C and D, after a whole frame
+    (plain versions): the largest cell, the largest chunk and the dropped
+    chunks equal those of the JAX package's ``prepare`` on the same state,
+    and the chunk counters are left zero."""
+    case = STATES[name]
+    j_occ, j_counts, j_dropped = (jax_prepared(name)[k] for k in (4, 5, 6))
+    st = case.state.map(lambda a: a.clone())
+    uvec, fert = tnbody.frame_fields(case.cfg, case.frame, st.tag)
+    stats = fs.plain_frame(st, st, uvec, fert, case.frame, case.cfg,
+                           c_max=case.c_max)
+    named = fs.stats_dict(stats)
+    assert named["max_cell_occupancy"] == int(j_occ)
+    assert named["max_chunk_occupancy"] == int(
+        jax_chunk_counts(case, j_counts).max())
+    assert named["n_listed_dropped"] == int(j_dropped)
+    assert not stats[len(fk.STATS):].any()
+    if case.c_max:
+        assert named["n_listed_dropped"] > 0
 
 
 @pytest.mark.parametrize("name", sorted(STATES))
@@ -94,14 +193,8 @@ def test_starts_and_prepare_match_jax(name):
     case = STATES[name]
     cfg, st = case.cfg, case.state
     key, order, starts, snap, chunks, inv, ovf, stats = sorted_inputs(case)
-    jcfg = jax_cfg(cfg)
-    js = jax_state(st)
-    cell = jgrid.coords_to_cell(jgrid.wrap_positions(js.pos, jcfg.grid)[1],
-                                jcfg.grid)
-    jout = jax.jit(functools.partial(jnbk.prepare, cfg=jcfg,
-                                     c_max=case.c_max))(
-        js.pos, js.age, js.w, cell, js.alive, tags=js.tag)
-    j_snap, j_chunks, j_order, j_ovf, j_occ, j_counts, j_dropped = jout
+    (j_snap, j_chunks, j_order, j_ovf, j_occ, j_counts,
+     j_dropped) = jax_prepared(name)
     n = st.slots
     np.testing.assert_array_equal(np.asarray(j_order), order.numpy())
     j_snap = np.asarray(j_snap)[:, :n]
@@ -119,10 +212,9 @@ def test_starts_and_prepare_match_jax(name):
     named = fs.stats_dict(stats)
     assert named["max_cell_occupancy"] == int(j_occ)
     assert named["n_listed_dropped"] == int(j_dropped)
-    cd, cf = cfg.grid.chunk_dim, cfg.grid.chunk_factor
-    per_cell = np.asarray(j_counts)[:cfg.grid.num_cells]
-    assert named["max_chunk_occupancy"] == per_cell.reshape(
-        cf, cd, cf, cd, cf, cd).sum(axis=(1, 3, 5)).max()
+    # C adds each chunk's rows to its counter; D takes their largest
+    np.testing.assert_array_equal(stats[len(fk.STATS):].numpy(),
+                                  jax_chunk_counts(case, j_counts).ravel())
     if case.c_max:
         assert named["n_listed_dropped"] > 0
     if name == "overflow":
@@ -286,18 +378,19 @@ def test_cpu_takes_the_plain_version_and_wrappers_refuse():
     tnbody.step(case.state, 1, case.cfg)
     assert all(w.launches == 0 for w in wrappers)
     st = case.state
+    a_args = (st.pos, st.alive, st.age, st.w, st.tag)
     with pytest.raises(ValueError, match="CUDA"):
-        fk.nbody_cells_cuda(st.pos, st.alive, case.cfg.grid)
+        fk.nbody_cells_cuda(*a_args, case.cfg.grid)
     with pytest.raises(ValueError, match="device"):
-        fk.nbody_cells(st.pos.to("meta"), st.alive.to("meta"), case.cfg.grid)
+        fk.nbody_cells(*(t.to("meta") for t in a_args), case.cfg.grid)
     with pytest.raises(ValueError, match="multiple of the block size"):
-        fk.block_prepare_plain(st.pos[:100], st.age[:100], st.w[:100],
+        fk.block_prepare_plain(fk.pack_records(st.pos[:100], st.age[:100],
+                                               st.w[:100], st.tag[:100]),
                                torch.zeros(100, dtype=torch.int32),
                                torch.arange(100), torch.zeros(
                                    case.cfg.grid.num_cells + 2,
                                    dtype=torch.int32), case.cfg,
-                               st.tag[:100], fk.new_stats("cpu"), 48, 1024,
-                               512)
+                               fk.new_stats("cpu"), 48, 1024, 512)
 
 
 @pytest.mark.cuda

@@ -42,6 +42,8 @@ from particlesystem_tpu_torch.core.state import (FIELDS, state_from_numpy,
 from particlesystem_tpu_torch.cpu_ref import native_emitter, oracle_emitter
 from particlesystem_tpu_torch.cpu_ref import oracle_nbody
 from particlesystem_tpu_torch.models import nbody as tnbody
+from particlesystem_tpu_torch.parallel import (DistributedNBodySimulation,
+                                               SlabSpec)
 from particlesystem_tpu_torch.runtime import checkpoint
 from particlesystem_tpu_torch.runtime.engine import (
     PackedEngine as TEngine, engine_state_to_numpy)
@@ -525,6 +527,83 @@ def test_profile_frame_times_the_stages_and_keeps_the_state(impl, active):
         assert sim.timers.totals[f"frame/{stage}"] == pytest.approx(ms / 1e3)
     sim.profile_frame(reps=1)
     assert sim.timers.counts["frame/full_frame"] == 2
+
+
+def _profiled_sim(active):
+    sim = NBodySimulation(port_cfg(LIFECYCLE), device="cpu", impl="blocks",
+                          active_bucketing=False)
+    sim.run(2)
+    if active:
+        sim.state = tnbody.compact_state(sim.state)
+        sim._active = active
+    return sim
+
+
+@pytest.mark.parametrize("active", [0, 1024])
+def test_profile_frame_takes_the_references_arguments(active):
+    """``profile_frame(k1=1, k2=2)`` as tests/test_runtime.py:121-136 calls
+    the JAX package's: the seven stages land in the timers; the state, the
+    frame and the prefix stay as they were, so that the run goes on as if
+    it had not been profiled (``full_frame`` runs batches of the loop that
+    ``run`` executes and puts the state back)."""
+    sim, twin = _profiled_sim(active), _profiled_sim(active)
+    before = state_to_numpy(sim.state)
+    out = sim.profile_frame(k1=1, k2=2)
+    assert set(out) == set(STAGES)
+    assert sim.frame == 2 and sim._active == active
+    after = state_to_numpy(sim.state)
+    for f in FIELDS:
+        np.testing.assert_array_equal(before[f], after[f], f)
+    rep = sim.timers.report()
+    assert "frame/calc_forces" in rep and "frame/build_grid" in rep
+    with pytest.raises(ValueError, match="k1 < k2"):
+        sim.profile_frame(k1=2, k2=2)
+    sim.run(2)
+    twin.run(2)
+    want = state_to_numpy(twin.state)
+    for f in FIELDS:
+        np.testing.assert_array_equal(state_to_numpy(sim.state)[f], want[f],
+                                      f)
+    assert vars(sim.last_stats).keys() == vars(twin.last_stats).keys()
+    for k, v in vars(twin.last_stats).items():
+        assert int(getattr(sim.last_stats, k)) == int(v), k
+
+
+def test_distributed_profile_frame_takes_the_references_arguments():
+    """``DistributedNBodySimulation.profile_frame(k1=1, k2=2, reps=1)``, as
+    the JAX package's is called, on one CPU rank: the frame's time, state
+    and frame as they were."""
+    sim = DistributedNBodySimulation(port_cfg(LIFECYCLE),
+                                     SlabSpec(n_devices=1), device="cpu")
+    sim.run(1, batch=1)
+    before = state_to_numpy(sim.state)
+    out = sim.profile_frame(k1=1, k2=2, reps=1)
+    assert list(out) == ["full_frame"]
+    assert sim.frame == 1
+    after = state_to_numpy(sim.state)
+    for f in FIELDS:
+        np.testing.assert_array_equal(before[f], after[f], f)
+    assert sim.timers.counts["frame/full_frame"] == 1
+    assert sim.timers.totals["frame/full_frame"] == pytest.approx(
+        out["full_frame"] / 1e3)
+
+
+@pytest.mark.cuda
+def test_cuda_profile_frame_times_the_replays():
+    """On a card ``full_frame`` is the slope of graph replays of the
+    current key, after the key's capture; the state is put back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    sim = NBodySimulation(port_cfg(LIFECYCLE), device="cuda")
+    sim.run(2)
+    before = state_to_numpy(sim.state)
+    replays = sim.graphs.replays
+    out = sim.profile_frame(k1=1, k2=2)
+    assert list(out) == list(STAGES) and out["full_frame"] > 0
+    assert sim.frame == 2 and sim.graphs.replays > replays
+    after = state_to_numpy(sim.state)
+    for f in FIELDS:
+        np.testing.assert_array_equal(before[f], after[f], f)
 
 
 def test_cli_nbody_dense_validate_save(tmp_path, capsys):
