@@ -156,16 +156,19 @@ Phases (any failure raises and exits non-zero):
     ``ops/frame_kernels.py``): each against its plain version on the same
     inputs, bit for bit (every field, record, mask, tag, flag, tile count
     and statistic; A and C with records and without; D and E into a fresh
-    state and in place), at full width (2,097,152 slots), on phase 4's
-    plateau prefix, on the 10M stage's 20,971,520 rows on 32^3 and on the
-    edge states of ``tools/frame_states.py``, B and C also on a non-cubic
+    state and in place; E again after a call on other inputs, and D + E
+    under two replays of one captured graph), at full width (2,097,152
+    slots), on phase 4's plateau prefix, on the 10M stage's 20,971,520
+    rows on 32^3 (a look-back over 5,120 of E's tiles) and on the edge
+    states of ``tools/frame_states.py``, B and C also on a non-cubic
     grid with ids and -1 padding; 20 frames of ``nbody.step`` against 20
     frames composed of the plain versions at full width, bit for bit;
     each kernel (A and C with records and without) timed through its
     wrapper, in a CUDA graph and in a graph with the L2 cleared before
     each launch, beside its bound (bytes; A's and E's counted on the run's
-    data) and, for B, ``torch.searchsorted``, then A + C of each route
-    against their summed bound; a trace of the 10M stage's replayed
+    data) and, for B, ``torch.searchsorted``, E beside one empty kernel in
+    a graph, then A + C of each route against their summed bound; E at
+    10M split by launch from a trace; a trace of the 10M stage's replayed
     frames, its largest kernels.
 
 The single-device frame loops (``NBodySimulation.run``,
@@ -222,6 +225,9 @@ ENGINE_KERNELS_BEFORE = 415.8
 # an eager frame's trace, before the frame kernels A-E (the same card)
 NBODY_REPLAY_KERNELS_BEFORE = 469.9
 NBODY_EAGER_KERNELS_BEFORE = 462
+# kernels a replayed n-body frame ran while E was three kernels (phase 14's
+# trace, the same card)
+NBODY_REPLAY_KERNELS_E3 = 25.0
 #: the n-body frame's kernels A-E (csrc/nbody_frame.cu), in frame order
 FRAME_KERNELS = ("nbody_cells", "cell_starts", "block_prepare",
                  "nbody_lifecycle", "nbody_spawn")
@@ -703,8 +709,7 @@ def kernel_sums(events) -> dict:
 
 #: the kernel functions of csrc/nbody_frame.cu, as a trace names them
 FRAME_KERNEL_FUNCTIONS = ("nbody_cells", "cell_starts", "block_prepare",
-                          "nbody_lifecycle", "spawn_scan", "spawn_rank",
-                          "spawn_write")
+                          "nbody_lifecycle", "spawn_rank", "spawn_write")
 #: the hand-written kernels an n-body frame launches once each
 NBODY_FRAME_FUNCTIONS = FRAME_KERNEL_FUNCTIONS + ("cluster_pair_kernel",
                                                   "nbody_frame_fields")
@@ -2879,7 +2884,8 @@ def phase_graphs_nbody(dev, eager_kernels=None):
           f"{'not measured' if nodes is None else nodes}; a trace of "
           f"{GRAPH_TRACE_FRAMES} replays: {trace['kernels']:.1f} kernels "
           f"and {trace['moves']:.1f} copies/sets a frame "
-          f"({NBODY_REPLAY_KERNELS_BEFORE} before the frame kernels)"
+          f"({NBODY_REPLAY_KERNELS_E3} kernels while E was three, "
+          f"{NBODY_REPLAY_KERNELS_BEFORE} before the frame kernels)"
           + ("" if eager_kernels is None else
              f" ({eager_kernels} kernels and copies in phase 4's eager "
              f"frame)")
@@ -3032,8 +3038,9 @@ def frame_kernel_bytes(cfg, st, tiles, k: int) -> dict:
     shapes; D in place, its tags not written).  A's and E's depend on the
     data: A without records reads the alive flag of every slot and the
     positions of the alive ones only, counted by the 32-byte sectors that
-    hold them; E the tiles it ranks (those whose prefix holds fewer than
-    ``k`` exploding or free slots) and the ``k`` children it writes.  The
+    hold them; E D's tile counts, the flags of the tiles (of D's 256
+    slots) that hold ranks below ``k`` and the ``k`` children's reads and
+    writes, none of its design's scratch (status words, tables).  The
     ``_records`` route: A reads every slot's pos, age, w and tag and writes
     its record, C reads one record a row where it otherwise gathers the
     row's pos, age, w and tag."""
@@ -3043,7 +3050,10 @@ def frame_kernel_bytes(cfg, st, tiles, k: int) -> dict:
     n = st.slots
     nc, nt = cfg.grid.num_cells, tiles.shape[0]
     before = torch.cumsum(tiles, 0) - tiles
-    ranked = int(((before[:, 0] < k) | (before[:, 1] < k)).sum())
+    holds = ((before < k) & (tiles > 0)).any(dim=1)
+    slots = torch.full((nt,), fk.TILE, device=tiles.device)
+    slots[-1] = n - fk.TILE * (nt - 1)
+    ranked = int(slots[holds].sum())
     starts = 4 * (nc + 2)
     stats = 8 * (len(fk.STATS) + cfg.grid.num_chunks)
     table = 16 * (n // nbk.B) * nbk.C_MAX
@@ -3061,11 +3071,10 @@ def frame_kernel_bytes(cfg, st, tiles, k: int) -> dict:
         # inv, acc_s, gmax_s, overflow_s, the state, uvec in; the state,
         # flags out; the tile counts
         nbody_lifecycle=(79 + 51) * n + 8 * nt + stats,
-        # the tile counts in, their scan out, the ranked tiles' flags; a
-        # child's parent (pos, vel, fert, tag) and row, and its two table
-        # entries
-        nbody_spawn=8 * nt * 2 + fk.TILE * ranked + (36 + 58 + 8) * k
-        + stats)
+        # the tile counts in, the flags of the tiles that hold ranks below
+        # k; a child's parent (pos, vel, fert, tag) in and its row out; the
+        # three statistics
+        nbody_spawn=8 * nt + ranked + (36 + 58) * k + 8 * 3)
 
 
 def frame_kernel_calls(cfg, st, frame):
@@ -3135,6 +3144,7 @@ def time_frame_kernels(cfg, st, frame, label: str) -> dict:
     calls, library, tiles = frame_kernel_calls(cfg, st, frame)
     k = _spawned(cfg, st, frame)
     work = frame_kernel_bytes(cfg, st, tiles, k)
+    floor = graph_ms(empty_kernel(st.device), 50)
     rows = {}
     for name, (kern, plain) in calls.items():
         p1 = cuda_ms(plain, 3)
@@ -3159,7 +3169,9 @@ def time_frame_kernels(cfg, st, frame, label: str) -> dict:
               f"{bound / in_graph:.1%} in the graph, {bound / cold:.1%} "
               f"with the L2 cleared"
               + ("" if lib_ms is None else
-                 f"; torch.searchsorted {lib_ms:.5f} ms"))
+                 f"; torch.searchsorted {lib_ms:.5f} ms")
+              + (f"; one empty kernel {floor:.5f} ms in a CUDA graph"
+                 if name == "nbody_spawn" else ""))
     records = fk.records_pay(st.slots, st.device)
     for route in ("", "_records"):
         a, c = rows["nbody_cells" + route], rows["block_prepare" + route]
@@ -3181,6 +3193,31 @@ def time_frame_kernels(cfg, st, frame, label: str) -> dict:
 #: bytes read between two launches of a reading with the L2 cleared:
 #: twice the H100's 50 MB L2
 L2_CLEAR_BYTES = 100 << 20
+
+
+def empty_kernel(dev):
+    """A thunk that launches one empty kernel (``ps_empty``) on ``dev``:
+    a launch's floor."""
+    from particlesystem_tpu_torch.utils.cuda_build import launch
+    return lambda: launch("ps_empty", dev)
+
+
+def spawn_split(cfg, st, frame, label: str, reps: int = 5) -> dict:
+    """E through its wrapper on the inputs one frame of ``st`` gives it,
+    traced ``reps`` times: each kernel's and memset's microseconds a call
+    (E's launches, whatever its design; a trace that lacks a launch of
+    ``spawn_rank`` or ``spawn_write``, which the three-kernel design ran
+    too, is taken again).  Returns the trace's sums."""
+    calls, _, _ = frame_kernel_calls(cfg, st, frame)
+    trace = trace_frames(calls["nbody_spawn"][0], reps,
+                         expect=("spawn_rank", "spawn_write"))
+    print(f"phase 15: {label}: E by launch, a trace of {reps} calls "
+          f"through the wrapper: " + "; ".join(
+              f"{name[:40]} x{n / reps:g} {us / reps:.2f} us"
+              for name, (n, us) in trace["sums"].items())
+          + f"; {trace['device_ms'] * 1e3:.2f} us of device time a call in "
+          f"{trace['kernels']:g} kernels and {trace['moves']:g} copies/sets")
+    return trace["sums"]
 
 
 def cold_graph_ms(fn, reps: int) -> float:
@@ -3240,14 +3277,16 @@ def phase_frame_kernels(dev, plateau_state, plateau_frame: int):
         del st
         torch.cuda.empty_cache()
         print(f"phase 15: {label}: A-E == plain bit for bit (D and E also "
-              f"in place); stats {stats}")
+              f"in place, E again after other inputs, D + E under two "
+              f"graph replays); stats {stats}")
     for case in fs.edge_states(dev):
         stats = fs.hold_kernels(case.cfg, case.state, case.frame, case.c_max)
         print(f"phase 15: edge state {case.name}: A-E == plain bit for bit; "
               f"stats {stats}")
         want = dict(burst="n_spawned", full="n_spawn_capped",
                     tags="n_collision_kills", cmax2="n_listed_dropped",
-                    overflow="n_overflow_kills")[case.name]
+                    overflow="n_overflow_kills", kedge="n_spawned",
+                    lasttile="n_spawned")[case.name]
         assert stats[want] > 0, f"edge state {case.name}: no {want}"
     dcfg, args, dims, ids = fs.dims_case(dev)
     stats = fs.hold_prepare(dcfg, args, dims, ids)
@@ -3265,6 +3304,8 @@ def phase_frame_kernels(dev, plateau_state, plateau_frame: int):
     big = nbody.init_fill(nbody_10m_cfg(), dev)
     time_frame_kernels(nbody_10m_cfg(), big, 0,
                        f"10M stage {big.slots} rows, frame 0")
+    spawn_split(nbody_10m_cfg(), big, 0, f"10M stage {big.slots} rows, "
+                f"frame 0")
     del big
     trace_10m(dev)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")

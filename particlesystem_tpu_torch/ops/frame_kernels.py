@@ -25,8 +25,11 @@ computes outside the pair kernel, the threefry draw and the sort.
   largest chunk, from C's counts.
 * E :func:`nbody_spawn` — the spawn part of ``lifecycle_update``: the
   i-th exploding parent (ascending slot) meets the i-th free slot for
-  ``i < k = min(n_child, n_free, e)``: on the card three kernels (the
-  scan of the tile counts, the ranks, the rows), counted as one launch.
+  ``i < k = min(n_child, n_free, e)``: on the card a memset of its
+  status words and two kernels, one pass over tiles of
+  :data:`SPAWN_TILE` slots that ranks both kinds against the budget
+  ``e`` by a decoupled look-back, then the children (scratch:
+  :func:`spawn_scratch_words`).
 
 Each is a dispatcher: CUDA tensors launch the kernel (``*_cuda``, which
 counts its launches in ``.launches`` through ``utils/frame_graph``), CPU
@@ -68,8 +71,12 @@ STATS = ("n_alive", "n_age_deaths", "n_collision_kills", "n_overflow_kills",
          "n_survivals", "n_spawned", "n_spawn_capped", "n_listed_dropped",
          "max_cell_occupancy", "max_chunk_occupancy", "n_tail_alive")
 STAT = {name: i for i, name in enumerate(STATS)}
-#: slots a spawn tile (D's block and E's rank block)
+#: slots a tile of D's explode and free counts (D's block)
 TILE = 256
+#: slots a ranking tile of E (a block of 256 threads, 16 flags each)
+SPAWN_TILE = 4096
+#: the most slots E ranks: its status words count each kind in 31 bits
+SPAWN_MAX_SLOTS = 2 ** 31 - 1
 #: chunk starts align to this many sorted rows
 ALIGN = 128
 #: int32 words of a row's record: x, y, z, w, age (float bits), the
@@ -570,7 +577,9 @@ def lifecycle_flags(state: ParticleState, pos_w, overflow, acc, kill, touch,
                               n_survivals=count(survive))
 
 
-def _tile_counts(explode, free) -> torch.Tensor:
+def tile_counts(explode, free) -> torch.Tensor:
+    """(ceil(N / :data:`TILE`), 2) int32: the explode and free slots of
+    each tile (D's ``tiles``)."""
     n = explode.shape[0]
     both = torch.stack([explode, free], dim=1).to(torch.int32)
     pad = (-n) % TILE
@@ -615,7 +624,7 @@ def nbody_lifecycle_plain(state: ParticleState, out: ParticleState, acc_s,
     counters.zero_()
     free = ~nxt.alive
     flags = explode.to(torch.uint8) | (free.to(torch.uint8) << 1)
-    return flags, _tile_counts(explode, free)
+    return flags, tile_counts(explode, free)
 
 
 def nbody_lifecycle_cuda(state: ParticleState, out: ParticleState, acc_s,
@@ -701,7 +710,8 @@ def nbody_spawn_plain(out: ParticleState, fert, frame, flags, tiles,
                       cfg: NBodyConfig, stats) -> None:
     """Plain version of E: :func:`spawn_children` of the exploding slots
     of ``flags`` (D's), written into ``out`` in place; ``stats``' spawned,
-    capped and alive counts.  ``tiles`` is what the kernel ranks by."""
+    capped and alive counts.  ``tiles`` is what the kernel sums its
+    tiles' counts from."""
     explode = (flags & 1).bool()
     nxt, k, n_child = spawn_children(out, explode, fert, frame, cfg)
     _copy_into(out, nxt)
@@ -713,12 +723,23 @@ def nbody_spawn_plain(out: ParticleState, fert, frame, flags, tiles,
     _add(stats, "n_alive", k)
 
 
+def spawn_scratch_words(n: int, e: int) -> int:
+    """The 64-bit words of E's scratch for ``n`` slots and the budget
+    ``e``: a status word a ranking tile, then the tables of the exploding
+    and the free slots of rank below ``e`` (int32 each).  Raises for an
+    ``n`` the status words cannot count."""
+    if not 0 < n <= SPAWN_MAX_SLOTS or not 0 < e <= n:
+        raise ValueError(f"E ranks 1 to {SPAWN_MAX_SLOTS} slots with a "
+                         f"budget of 1 to n, got n={n}, e={e}")
+    return -(-n // SPAWN_TILE) + e
+
+
 def nbody_spawn_cuda(out: ParticleState, fert, frame, flags, tiles,
                      cfg: NBodyConfig, stats) -> None:
-    """Launch ``ps_nbody_spawn``: three kernels (the scan of the tile
-    counts, the ranks, the rows; counted as one launch), the frame read on
-    the device (``rng_kernel.frame_on``); same contract as the plain
-    version."""
+    """Launch ``ps_nbody_spawn``: a memset of its status words, then two
+    kernels (the ranks against the budget by a decoupled look-back; the
+    children, k read on the device), the frame read on the device
+    (``rng_kernel.frame_on``); same contract as the plain version."""
     dev = _cuda_device(out.pos, nbody_spawn_cuda)
     n = out.slots
     _check_state(dev, out, n, "out")
@@ -729,9 +750,8 @@ def nbody_spawn_cuda(out: ParticleState, fert, frame, flags, tiles,
     if n == 0:
         return
     e = min(cfg.max_spawns_per_frame, n)
-    cum = torch.empty_like(tiles)
-    src = torch.empty((e,), dtype=torch.int32, device=dev)
-    tgt = torch.empty((e,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((spawn_scratch_words(n, e),), dtype=torch.int64,
+                          device=dev)
     frame = frame_on(frame, dev)
     fields = (ctypes.c_void_p * 6)(*(t.data_ptr() for t in (
         out.pos, out.vel, out.acc, out.w, out.age, out.life)))
@@ -739,10 +759,8 @@ def nbody_spawn_cuda(out: ParticleState, fert, frame, flags, tiles,
                                   out.parent.data_ptr())
     _launch("ps_nbody_spawn", dev, ctypes.addressof(fields),
             ctypes.addressof(bools), out.tag.data_ptr(), fert.data_ptr(),
-            frame.data_ptr(), flags.data_ptr(), tiles.data_ptr(),
-            cum.data_ptr(), n, e,
-            as_f32(cfg.weight), src.data_ptr(), tgt.data_ptr(),
-            stats.data_ptr())
+            frame.data_ptr(), flags.data_ptr(), tiles.data_ptr(), n, e,
+            as_f32(cfg.weight), scratch.data_ptr(), stats.data_ptr())
     count_launch(nbody_spawn_cuda)
 
 

@@ -5,13 +5,18 @@ hold each kernel to its plain version on them.
 * :func:`edge_states` — small states made with numpy from a seed: a spawn
   burst over the per-frame budget, a container with no free slot, the
   tags 0x80000000 and 0xFFFFFFFF among colliding and exploding particles,
-  cell-cap overflow rows beside all-dead blocks, and a 2-chunk budget
-  that drops chunks; :func:`dims_case` the decomposed step's inputs to
+  cell-cap overflow rows beside all-dead blocks, a 2-chunk budget
+  that drops chunks, and where E's ranking tiles end: k on a tile's
+  boundary, and a slot count that is not a multiple of the tile with
+  every parent in the last tile and every free slot in the first;
+  :func:`dims_case` the decomposed step's inputs to
   ``prepare``: a non-cubic grid, explicit ids and -1-id padding rows.
 * :func:`hold_kernels` — on a card, A-E each against its plain version on
   the inputs one frame of a state gives it, bit for bit (every field,
   record, mask, tag, flag, tile count and statistic; A and C with records
-  and without), D and E both into a fresh state and in place;
+  and without), D and E both into a fresh state and in place, E again
+  after a call on other inputs, and D + E under two replays of one
+  captured graph;
   :func:`hold_prepare` B and C on ``prepare``'s inputs; :func:`hold_frames`
   whole frames of ``nbody.step`` against :func:`plain_frame`, the frame
   composed of the plain versions.
@@ -33,6 +38,7 @@ from ..core.state import FIELDS, ParticleState, zero_state
 from ..models import nbody
 from ..ops import frame_kernels as fk
 from ..ops import neighbor_blocks as nbk
+from ..utils.frame_graph import recording
 
 #: the tags at the edges of the collision key and the child-tag mix
 EDGE_TAGS = (0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 0x80000001, 0)
@@ -52,18 +58,21 @@ def _cfg(**kw) -> NBodyConfig:
 
 
 def _state(n: int, slots: int, pos, age, life, tags, device,
-           parent=None, vel=None) -> ParticleState:
-    """``n`` alive particles in slots 0..n-1 of ``slots``."""
+           parent=None, vel=None, where=None) -> ParticleState:
+    """``n`` alive particles in slots 0..n-1 of ``slots``, or in the
+    slots ``where``."""
     s = zero_state(slots, "cpu")
-    s.pos[:n] = torch.from_numpy(np.asarray(pos, np.float32))
-    s.age[:n] = torch.from_numpy(np.asarray(age, np.float32))
-    s.life[:n] = torch.from_numpy(np.asarray(life, np.float32))
-    s.w[:n] = 60.0
-    s.alive[:n] = True
+    at = (slice(0, n) if where is None
+          else torch.from_numpy(np.asarray(where, np.int64)))
+    s.pos[at] = torch.from_numpy(np.asarray(pos, np.float32))
+    s.age[at] = torch.from_numpy(np.asarray(age, np.float32))
+    s.life[at] = torch.from_numpy(np.asarray(life, np.float32))
+    s.w[at] = 60.0
+    s.alive[at] = True
     if vel is not None:
-        s.vel[:n] = torch.from_numpy(np.asarray(vel, np.float32))
+        s.vel[at] = torch.from_numpy(np.asarray(vel, np.float32))
     if parent is not None:
-        s.parent[:n] = torch.from_numpy(np.asarray(parent))
+        s.parent[at] = torch.from_numpy(np.asarray(parent))
     s.tag = torch.from_numpy(np.asarray(tags, np.int64))
     return s.to(device)
 
@@ -128,6 +137,32 @@ def edge_states(device, seed: int = 5) -> list:
         n, 2048, rng.uniform(-10.0, -1.0, (n, 3)), rng.uniform(1.0, 14.0, n),
         rng.uniform(1.0, 30.0, n), rng.integers(0, 2 ** 32, 2048), dev),
         frame_t, None))
+
+    # where E's ranking tiles end.  k on a tile's boundary: the first tile
+    # holds e = 2048 exploding parents (its even slots) and e free slots
+    # (its odd ones), so both kinds reach k = e exactly where the second
+    # tile starts; that tile's 200 parents rank past e
+    t = fk.SPAWN_TILE
+    later = t + np.sort(rng.choice(t, 200, replace=False))
+    where = np.concatenate([np.arange(0, t, 2), later])
+    n = len(where)
+    cfg = _cfg(n_fill=n, capacity=2 * t, spawn_budget=t // 2)
+    out.append(EdgeState("kedge", cfg, _state(
+        n, 2 * t, _lattice(n, rng), np.full(n, 3.0), np.full(n, 1.0),
+        rng.integers(0, 2 ** 32, 2 * t), dev, vel=rng.uniform(-1, 1, (n, 3)),
+        where=where), frame_t, None))
+
+    # a slot count that is not a multiple of the tile (a multiple of the
+    # sorted block, as every frame's): the first tile all free, the last
+    # (512 slots) all alive, 400 of them exploding parents and the rest
+    # kids
+    n, slots = nbk.B, t + nbk.B
+    explode = rng.permutation(n) < 400
+    cfg = _cfg(n_fill=n, capacity=slots)
+    out.append(EdgeState("lasttile", cfg, _state(
+        n, slots, _lattice(n, rng), np.where(explode, 3.0, 0.5),
+        np.where(explode, 1.0, 30.0), rng.integers(0, 2 ** 32, slots), dev,
+        vel=rng.uniform(-1, 1, (n, 3)), where=np.arange(t, slots)), 5, None))
     return out
 
 
@@ -224,29 +259,72 @@ def hold_kernels(cfg: NBodyConfig, state: ParticleState, frame,
     ck, sk, sp = _hold_c(cfg, rec, fields, skey, order, starts, c_max,
                          grid.num_chunks, grid=grid)
     acc_s, gmax_s = nbk.kernel_call(cfg, ck[0], ck[1])
+    d_args = (acc_s, gmax_s, ck[3], ck[2], uvec, cfg)
+    s_c = sk.clone()
     outs = []
     for lifecycle, spawn, stats in (
             (fk.nbody_lifecycle_cuda, fk.nbody_spawn_cuda, sk),
             (fk.nbody_lifecycle_plain, fk.nbody_spawn_plain, sp)):
         out = state.map(torch.empty_like)
-        flags, tiles = lifecycle(state, out, acc_s, gmax_s, ck[3], ck[2],
-                                 uvec, cfg, stats)
-        outs.append((out, flags, tiles, stats.clone()))
+        flags, tiles = lifecycle(state, out, *d_args, stats)
+        d_out, d_stats = out.map(lambda a: a.clone()), stats.clone()
         spawn(out, fert, frame, flags, tiles, cfg, stats)
-    (dk, fl_k, ti_k, st_k), (dp, fl_p, ti_p, st_p) = outs
+        outs.append((d_out, flags, tiles, d_stats, out))
+    (d_k, fl_k, ti_k, st_k, dk), (_, fl_p, ti_p, st_p, dp) = outs
     _same(fl_k, fl_p, "D flags")
     _same(ti_k, ti_p, "D tiles")
     _same(st_k, st_p, "D stats")
     _same_state(dk, dp, "D and E")
     _same(sk, sp, "E stats")
+    _hold_spawn_again(cfg, d_k, st_k, fert, frame, fl_k, ti_k, dk, sk)
     # D and E in place, as step_into runs them
     inplace = state.map(lambda a: a.clone())
     si = fk.new_stats(state.device, grid.num_chunks)
-    flags, tiles = fk.nbody_lifecycle_cuda(inplace, inplace, acc_s, gmax_s,
-                                           ck[3], ck[2], uvec, cfg, si)
+    flags, tiles = fk.nbody_lifecycle_cuda(inplace, inplace, *d_args, si)
     fk.nbody_spawn_cuda(inplace, fert, frame, flags, tiles, cfg, si)
     _same_state(inplace, dk, "D and E in place")
+    _hold_graph(cfg, state, d_args, s_c, fert, frame, dk, sk)
     return stats_dict(sk)
+
+
+def _hold_spawn_again(cfg, d_out, d_stats, fert, frame, flags, tiles, want,
+                      want_stats) -> None:
+    """E on D's outputs again, after a call on other inputs (the flags
+    reversed) that leaves its status words in the scratch the allocator
+    hands the next call of the same size: ``want`` bit for bit, so no
+    word of an earlier call is read."""
+    other = flags.flip(0)
+    junk = d_out.map(lambda a: a.clone())
+    fk.nbody_spawn_cuda(junk, fert, frame, other,
+                        fk.tile_counts((other & 1).bool(), other >= 2), cfg,
+                        d_stats.clone())
+    again = d_out.map(lambda a: a.clone())
+    stats = d_stats.clone()
+    fk.nbody_spawn_cuda(again, fert, frame, flags, tiles, cfg, stats)
+    _same_state(again, want, "E again after other inputs")
+    _same(stats, want_stats, "E again after other inputs: stats")
+
+
+def _hold_graph(cfg, state, d_args, s_c, fert, frame, want,
+                want_stats) -> None:
+    """D and E captured once in a CUDA graph (the statistics put back to
+    C's first), then replayed twice: each replay ``want`` bit for bit, so
+    the memset the graph captured resets E's status words."""
+    out = state.map(torch.empty_like)
+    stats = torch.empty_like(s_c)
+
+    def d_and_e():
+        stats.copy_(s_c)
+        flags, tiles = fk.nbody_lifecycle_cuda(state, out, *d_args, stats)
+        fk.nbody_spawn_cuda(out, fert, frame, flags, tiles, cfg, stats)
+
+    graph = torch.cuda.CUDAGraph()
+    with recording(), torch.cuda.graph(graph):
+        d_and_e()
+    for replay in (1, 2):
+        graph.replay()
+        _same_state(out, want, f"D and E, graph replay {replay}")
+        _same(stats, want_stats, f"D and E, graph replay {replay}: stats")
 
 
 def hold_prepare(cfg: NBodyConfig, args, dims=None, ids=None,

@@ -137,7 +137,10 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [_P] * 8 + [n, _P, i, i, _P, _P, _P, _P]
     fn.restype = ctypes.c_int
     fn = lib.ps_nbody_spawn
-    fn.argtypes = [_P] * 8 + [n, i, f, _P, _P, _P, _P]
+    fn.argtypes = [_P] * 7 + [n, i, f, _P, _P, _P]
+    fn.restype = ctypes.c_int
+    fn = lib.ps_empty
+    fn.argtypes = [_P]
     fn.restype = ctypes.c_int
     return lib
 

@@ -5,8 +5,10 @@ Each plain contract is held to the JAX functions it stands for, on the
 edge states of ``tools/frame_states.py`` (made with numpy from a seed): a
 spawn burst past the budget, no free slot, the tags 0x80000000 and
 0xFFFFFFFF in contact and exploding, cell-cap overflow rows beside
-all-dead blocks, a 2-chunk budget that drops chunks, a non-cubic grid
-with ids and -1 padding, the frame as a 0-dim tensor.
+all-dead blocks, a 2-chunk budget that drops chunks, k on a boundary of
+E's ranking tiles, a slot count that is not a multiple of that tile with
+every parent in the last tile and every free slot in the first, a
+non-cubic grid with ids and -1 padding, the frame as a 0-dim tensor.
 
 * A against ``grid.wrap_positions`` + ``coords_to_cell``: exact; its
   records' fields (the state's bits, ``neighbor_blocks.collision_okey`` of
@@ -305,11 +307,34 @@ def test_lifecycle_and_spawn_match_jax(name):
     named = check_lifecycle(case, acc_s, gmax_s)
     want = dict(burst=("n_spawned", 64), full=("n_spawn_capped", 64),
                 tags=("n_collision_kills", 1), cmax2=("n_survivals", 1),
-                overflow=("n_overflow_kills", 1))[name]
+                overflow=("n_overflow_kills", 1), kedge=("n_spawned", 2048),
+                lasttile=("n_spawned", 400))[name]
     assert named[want[0]] >= want[1], (name, named)
     if name == "burst":
         # the budget, not the free slots, capped the burst
         assert named["n_spawn_capped"] == 0
+    if name in ("kedge", "lasttile"):
+        check_spawn_tiles(case, named["n_spawned"])
+
+
+def check_spawn_tiles(case, k):
+    """Where the edge states put E's ranks: k on the boundary of the first
+    ranking tile for both kinds (kedge), or every parent in the last tile
+    and every free slot in the first, whose slot count is not a multiple
+    of the tile (lasttile)."""
+    st = case.state
+    out, stats = tnbody.step(st, case.frame, case.cfg)
+    assert int(stats.n_alive) == int(st.alive.sum()) + k   # no deaths
+    explode = (out.parent & ~st.parent).numpy()
+    free = (~st.alive).numpy()
+    t = fk.SPAWN_TILE
+    if case.name == "kedge":
+        assert k == case.cfg.max_spawns_per_frame
+        assert explode[:t].sum() == free[:t].sum() == k
+        assert explode[t:].sum() > 0 and free[t:].sum() > 0
+    else:
+        assert st.slots % t and k == explode.sum() == explode[t:].sum()
+        assert free.sum() == free[:t].sum()
 
 
 def test_lifecycle_on_the_jax_kernels_outputs():
@@ -391,6 +416,16 @@ def test_cpu_takes_the_plain_version_and_wrappers_refuse():
                                    case.cfg.grid.num_cells + 2,
                                    dtype=torch.int32), case.cfg,
                                fk.new_stats("cpu"), 48, 1024, 512)
+
+
+def test_spawn_scratch_refuses_what_its_words_cannot_count():
+    assert fk.spawn_scratch_words(4608, 1024) == 2 + 1024
+    assert fk.spawn_scratch_words(fk.SPAWN_MAX_SLOTS, 1) == (
+        1 + -(-fk.SPAWN_MAX_SLOTS // fk.SPAWN_TILE))
+    for n, e in ((fk.SPAWN_MAX_SLOTS + 1, 1024), (0, 1), (100, 101),
+                 (100, 0)):
+        with pytest.raises(ValueError, match="E ranks"):
+            fk.spawn_scratch_words(n, e)
 
 
 @pytest.mark.cuda
