@@ -89,33 +89,41 @@ Phases (any failure raises and exits non-zero):
     slots with ``enable_readback(depth=3)``: 60 frames with every popped
     frame compared with ``packed()`` of its frame, then 60 frames timed
     without readback and 60 with a consumer thread draining the ring;
-11. the multi-device path: (a) ``DistributedNBodySimulation(NBodyConfig(),
-    SlabSpec(n_devices=1, impl="blocks"))`` over a one-rank NCCL group at
-    full width, ``run(10)`` twice, bit-identical (state and statistics) to
-    the single-device full-width step on the same arrangement, 20
-    pair-kernel launches, ms/frame of the second call beside the
-    single-device frame, peak memory, and the sharded checkpoint saved
-    after frame 10 and resumed bit-identically; (b) slab D=2, pencil
-    (2, 2) and brick (2, 2, 2), ranks spawned on the one card over gloo
-    (the tests' config shape at 32,768 particles; the slab's halo buffers
-    8,000 rows, so its passes carry padding rows), each against the
-    single-device run inside the parity windows (8, 7, 7 frames), with
-    ms/frame and the bytes staged through the host.  In (a) and (b) the
-    pair kernel is also held against its plain version on the inputs the
-    decomposed step gives it (the rank's halo-extended grid, halo rows
-    from other ranks, global ids, -1-id padding): the first pass of (a) on
-    64 evenly spaced live blocks, the first and the last pass of the
-    window on every rank of (b), whole; (c) the data-parallel
-    emitter: one rank at 10,485,760 slots bit for bit ``PackedEngine``,
-    two ranks at 1,048,576 slots bit for bit two local engines salted 0
-    and 1.  Every spawn has a time limit;
+11. the multi-device path, the decomposed frame on the threefry kernel,
+    B, C, the pair kernel, D and E (A is the cubic grid's): (a)
+    ``DistributedNBodySimulation(NBodyConfig(), SlabSpec(n_devices=1,
+    impl="blocks"))`` over a one-rank NCCL group at full width, ``run(10)``
+    twice as one eager frame, one capture and 19 replays of its frame
+    graph (the NCCL all-reduces captured in it), each kernel launched once
+    a frame, bit-identical (state and statistics) to the single-device
+    full-width step and to the single-device loop on the same
+    arrangement, ms/frame of the second call beside the single-device
+    loop's, peak memory, a trace of replays (kernels, copies and sets a
+    replay, busy share), and the sharded checkpoint saved after frame 10
+    and resumed bit-identically; (b) slab D=2, pencil (2, 2) and brick
+    (2, 2, 2), ranks spawned on the one card over gloo, so eager (the
+    tests' config shape at 32,768 particles; the slab's halo buffers 8,000
+    rows, so its passes carry padding rows), each against the
+    single-device run inside the parity windows (8, 7, 7 frames), every
+    rank's kernels counted once a frame, with ms/frame and the bytes
+    staged through the host.  In (a) and (b) the pair kernel is also held
+    against its plain version on the inputs the decomposed step gives it
+    (the rank's halo-extended grid, halo rows from other ranks, global
+    ids, -1-id padding): the first pass of (a) on 64 evenly spaced live
+    blocks, the first and the last pass of the window on every rank of
+    (b), whole; (c) the data-parallel emitter, its ``step_many`` as graph
+    replays: one rank at 10,485,760 slots bit for bit ``PackedEngine`` and
+    its eager frames, two ranks at 1,048,576 slots sharing the card bit
+    for bit the eager frames of two local engines salted 0 and 1.  Every
+    spawn has a time limit;
 12. the bench, the entry functions, the launcher and the measuring tools:
     (a) every stage of ``particlesystem_tpu_torch.bench`` at cut counts
     (``BENCH_CUT``) through ``bench.run``, the launch counts reset before
     and read after (both kernels launched, the pair kernel once a pass),
     the printed JSON line held to its keys with no value null; the first
-    and the last pass of each n-body stage (10,485,760 particles on 32^3
-    among them) held against the plain version on 256 evenly spaced live
+    and the last pass run in Python of each n-body stage (10,485,760
+    particles on 32^3 among them; the sharded stage's one eager frame)
+    held against the plain version on 256 evenly spaced live
     blocks, and on the single-device passes the chunk table checked to
     list every stencil partner of those blocks' rows once, against a
     histogram of the cells; (b) ``entry()``'s frame on the card against
@@ -161,7 +169,9 @@ Phases (any failure raises and exits non-zero):
     slots), on phase 4's plateau prefix, on the 10M stage's 20,971,520
     rows on 32^3 (a look-back over 5,120 of E's tiles) and on the edge
     states of ``tools/frame_states.py``, B and C also on a non-cubic
-    grid with ids and -1 padding; 20 frames of ``nbody.step`` against 20
+    grid with ids and -1 padding, D and E also on a slab rank's
+    halo-extended pass at full width (more rows than slots, ``inv`` read
+    for the rank's slots only); 20 frames of ``nbody.step`` against 20
     frames composed of the plain versions at full width, bit for bit;
     each kernel (A and C with records and without) timed through its
     wrapper, in a CUDA graph and in a graph with the L2 cleared before
@@ -171,17 +181,19 @@ Phases (any failure raises and exits non-zero):
     10M split by launch from a trace; a trace of the 10M stage's replayed
     frames, its largest kernels.
 
-The single-device frame loops (``NBodySimulation.run``,
+The frame loops (``NBodySimulation.run``,
 ``PackedEngine.step``/``step_many``, and ``ParticleSystem``, ``bench`` and
-``entry()`` through them) replay one CUDA graph a frame after a key's
-eager first frame.  Every path that draws random fields on the card goes
+``entry()`` through them; ``DistributedNBodySimulation.run`` on a mesh of
+one rank; ``ShardedEmitterEngine.step``/``step_many`` on every rank)
+replay one CUDA graph a frame after a key's eager first frame.  Every path that draws random fields on the card goes
 through the threefry kernel: its launches are read beside the other
 kernels' in phases 4, 6, 7, 9, 10, 11, 12 and 14 (once a frame, once an
 ``init_fill``; a replay counts the launches its graph recorded), and
 phase 6 also holds the spawn draws on the card against those on the
 CPU.  Every single-device n-body frame on the card runs A-E once (phases
-4, 9, 12 and 14 read their launches); ``prepare``, the decomposed step's
-included, runs B and C, C on the arrays it is given.
+4, 9, 12 and 14 read their launches), every decomposed blocks frame B-E
+(phases 11 and 12); ``prepare`` runs B and C, C on the arrays it is
+given.
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -1744,15 +1756,16 @@ def pair_checks(module, at, c_local=None, subset=None):
     ``parallel.nbody_sharded`` for the decomposed step, which the slab,
     the pencil and the brick all call, over a halo-extended grid with the
     halo rows from other ranks, global ids and -1-id padding rows (its
-    ``neighbor_pass_blocks`` is wrapped, and the check builds the pass's
-    snapshot and chunk table with ``prepare``, kernels B and C on a card);
+    ``sort_and_prepare`` is wrapped, and the check takes the snapshot and
+    chunk table that B and C built for the pass's pair kernel);
     ``ops.neighbor_blocks`` for the single-device frame (its
     ``kernel_call`` is wrapped, which ``models/nbody.blocks_frame`` calls
     on the snapshot and chunk table that B and C built: the check takes
     those very inputs).  Only calls that run a pass count: a call made
     while a frame graph is captured is not a pass (the graph's replays
-    are, and run no Python), so the single-device loop's passes seen here
-    are each key's first, eager frame; ``LAST`` keeps a copy of the
+    are, and run no Python), so the passes seen here on a loop that
+    replays graphs (the single-device loop, the decomposed loop on one
+    rank) are each key's first, eager frame; ``LAST`` keeps a copy of the
     latest pass's inputs and checks it when the block ends.  Checks the
     ids unique among the valid rows (the kernel's precondition) and runs
     :func:`compare_kernel` on the whole pass, or on ``subset`` evenly
@@ -1766,7 +1779,7 @@ def pair_checks(module, at, c_local=None, subset=None):
     import torch
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
     single = module is nbk
-    hook = "kernel_call" if single else "neighbor_pass_blocks"
+    hook = "kernel_call" if single else "sort_and_prepare"
     inner = getattr(module, hook)
     calls, records, latest = [0], [], []
 
@@ -1805,19 +1818,13 @@ def pair_checks(module, at, c_local=None, subset=None):
                 int(valid.sum()), "the frame's ids are not unique"
             compare(call, cfg, snap, chunks, None, int(valid.sum()), 0, 0)
             return
-        pos0, age0, w0, cell, alive, cfg, tags, dims, ids = args
-        n = pos0.shape[0]
-        if ids is not None:
-            assert torch.unique(ids[alive]).numel() == \
-                int(alive.sum()), \
-                "the pass's ids are not unique among its valid rows"
-        with counts_kept():
-            snap, chunks, *_ = nbk.prepare(pos0, age0, w0, cell, alive, cfg,
-                                           tags, dims=dims, ids=ids)
-        local = n if c_local is None else c_local
-        compare(call, cfg, snap, chunks, dims, int(alive.sum()),
-                int(alive[local:].sum()),
-                0 if ids is None else int((ids == -1).sum()))
+        cfg, snap, chunks, dims, key, ids = args
+        valid = key < dims[0] * dims[1] * dims[2]
+        assert torch.unique(ids[valid]).numel() == int(valid.sum()), \
+            "the pass's ids are not unique among its valid rows"
+        local = key.shape[0] if c_local is None else c_local
+        compare(call, cfg, snap, chunks, dims, int(valid.sum()),
+                int(valid[local:].sum()), int((ids == -1).sum()))
 
     def record(args, cuda):
         if not (cuda and torch.cuda.is_current_stream_capturing()):
@@ -1830,12 +1837,10 @@ def pair_checks(module, at, c_local=None, subset=None):
                     if torch.is_tensor(a) else a for a in args)]
             calls[0] += 1
 
-    def checked_pass(pos0, age0, w0, cell, alive, cfg, tags, dims=None,
-                     ids=None):
-        record((pos0, age0, w0, cell, alive, cfg, tags, dims, ids),
-               pos0.is_cuda)
-        return inner(pos0, age0, w0, cell, alive, cfg, tags, dims=dims,
-                     ids=ids)
+    def checked_pass(key, rows, cfg, c_max, ch, b, grid=None, dims=None):
+        p = inner(key, rows, cfg, c_max, ch, b, grid=grid, dims=dims)
+        record((cfg, p.snap, p.chunks, dims, key, rows.ids), key.is_cuda)
+        return p
 
     def checked_kernel(cfg, snap, chunks, ch=None, b=None):
         record((cfg, snap, chunks), snap.f.is_cuda)
@@ -1868,18 +1873,18 @@ def rank_nbody(rank, group, cfg, spec, frames, timed, device):
     """One rank of a phase-11 multi-rank run: ``frames`` frames read one by
     one (statistics and the gathered alive rows), the pair kernel held
     against its plain version on the first and the last of those frames'
-    passes, then ``timed`` frames in one batch; rank 0 returns the frames,
-    ms/frame, bytes staged through the host a frame, its launches of the
-    pair and the threefry kernel in those frames and its kernel checks."""
+    passes, then ``timed`` frames in one batch.  Every rank returns its
+    launches of each kernel in those frames (the checks' taken off) and
+    whether its driver took frame graphs; rank 0 also the frames,
+    ms/frame, bytes staged through the host a frame and its kernel
+    checks."""
     import torch
     from particlesystem_tpu_torch.core.state import state_to_numpy
-    from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
-    from particlesystem_tpu_torch.ops import rng_kernel as rk
     from particlesystem_tpu_torch.parallel import nbody_sharded
     from particlesystem_tpu_torch.parallel.driver import (
         DistributedNBodySimulation)
     dev = torch.device(device)
-    nbk.cluster_pair_cuda.launches = rk.nbody_fields_cuda.launches = 0
+    reset_launches()
     sim = DistributedNBodySimulation(cfg, spec, group=group, device=dev)
     out = []
     with pair_checks(nbody_sharded, (0, frames - 1),
@@ -1889,7 +1894,8 @@ def rank_nbody(rank, group, cfg, spec, frames, timed, device):
             out.append((stats, _alive_rows(state_to_numpy(sim.gather()))))
     assert [r["call"] for r in checks] == [0, frames - 1], checks
     assert all(r["halo"] > 0 and r["in_band"] > 0 for r in checks), checks
-    launches = (nbk.cluster_pair_cuda.launches, rk.nbody_fields_cuda.launches)
+    counted = launches()
+    graphed = sim.graphs is not None
     staged = sim.mesh.staged_bytes
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -1899,13 +1905,16 @@ def rank_nbody(rank, group, cfg, spec, frames, timed, device):
         torch.cuda.synchronize(dev)
     ms = (time.perf_counter() - t0) * 1e3 / timed
     per_frame = (sim.mesh.staged_bytes - staged) / timed
-    return (out, ms, per_frame, launches, checks) if rank == 0 else None
+    if rank:
+        return None, None, None, counted, None, graphed
+    return out, ms, per_frame, counted, checks, graphed
 
 
 def rank_emitter(rank, group, cfg, frames, device):
     """One rank of the data-parallel emitter: its leaves after ``frames``
-    frames, its engine's physics and threefry launches and the psum'd
-    alive count."""
+    frames of ``step_many`` (graph replays on a card), its engine's
+    physics and threefry launches, the psum'd alive count and its
+    engine's (eager frames, captures, replays)."""
     import torch
     from particlesystem_tpu_torch.ops import physics_kernel as pk
     from particlesystem_tpu_torch.ops import rng_kernel as rk
@@ -1916,9 +1925,10 @@ def rank_emitter(rank, group, cfg, frames, device):
                                alloc="select", layout="packed8",
                                device=torch.device(device))
     es = eng.step_many(eng.init(), frames)
+    g = eng.local.graphs
     return (engine_state_to_numpy(es), (pk.physics_step_cuda.launches,
                                         rk.flat_fields_cuda.launches),
-            eng.alive_count(es))
+            eng.alive_count(es), (g.eager_frames, g.captures, g.replays))
 
 
 def single_device_frames(cfg, spec, frames, dev):
@@ -1954,10 +1964,20 @@ def elapsed_ms(fn, dev) -> float:
     return start.elapsed_time(end)
 
 
+#: the kernel functions a sharded frame launches once each (a trace's
+#: names): the single-device frame's less A
+SHARDED_FRAME_FUNCTIONS = tuple(f for f in NBODY_FRAME_FUNCTIONS
+                                if f != "nbody_cells")
+
+
 def phase_sharded_one_rank(dev, cfg=None):
     """11a: the slab at d=1 over a one-rank NCCL group at full width
-    (``NBodyConfig()``), against the single-device step on the same
-    arrangement, bit for bit."""
+    (``NBodyConfig()``), its frames replayed from one captured graph
+    (the NCCL all-reduces in it), against the single-device step and the
+    single-device loop on the same arrangement, bit for bit: 20 frames,
+    then a resume from its checkpoint; each frame launches the threefry
+    kernel, B, C, the pair kernel, D and E once.  Prints ms a frame beside
+    the single-device loop's and a trace of replays."""
     import datetime
     import os
     import tempfile
@@ -1983,6 +2003,9 @@ def phase_sharded_one_rank(dev, cfg=None):
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         sim = DistributedNBodySimulation(cfg, spec, group=group, device=dev)
+        on_card = dev.type == "cuda"
+        # NCCL on a card captures; gloo (the CPU rehearsal) runs eagerly
+        assert (sim.graphs is not None) == on_card, sim.graphs
         start = sim.state.map(lambda a: a.clone())
         reset_launches()
         with pair_checks(nbody_sharded, (0,), cfg.slots,
@@ -2005,15 +2028,31 @@ def phase_sharded_one_rank(dev, cfg=None):
             ) / SHARDED_ITERS
             second = runs[0]
             second_counts = launches()
-            n_launch, n_rng = (first_counts[k] + second_counts[k]
-                               for k in ("cluster_pair", "threefry_nbody"))
+            counts = {k: first_counts[k] + second_counts[k]
+                      for k in first_counts}
+            n_launch, n_rng = (counts[k] for k in ("cluster_pair",
+                                                   "threefry_nbody"))
             peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
                     else 0)
-            # (none on the CPU, where the phase is rehearsed small)
-            assert n_launch == n_rng == (2 * SHARDED_ITERS
-                                         if dev.type == "cuda" else 0), \
-                f"{n_launch} pair-kernel and {n_rng} threefry launches in " \
-                f"{2 * SHARDED_ITERS} frames"
+            # once a frame each, A none (none on the CPU, where the phase
+            # is rehearsed small)
+            kernels = ("threefry_nbody", "cluster_pair") + FRAME_KERNELS[1:]
+            per = 2 * SHARDED_ITERS if on_card else 0
+            assert counts == {k: per if k in kernels else 0
+                              for k in counts}, \
+                f"launches in {2 * SHARDED_ITERS} frames: {counts}"
+            if on_card:
+                g = sim.graphs
+                assert (g.eager_frames, g.captures, g.replays) == (
+                    1, 1, 2 * SHARDED_ITERS - 1), \
+                    (g.eager_frames, g.captures, g.replays)
+                names = {w: name for name, w in _wrappers().items()}
+                rec = {names[w]: n for w, n in g.recorded(sim._KEY).items()}
+                assert rec == {k: 1 for k in kernels}, rec
+                replays = (f"{g.eager_frames} eager frame, {g.captures} "
+                           f"capture, {g.replays} replays")
+            else:
+                replays = "eager frames over gloo"
             resumed = DistributedNBodySimulation(cfg, spec, group=group,
                                                  device=dev)
             t0 = time.perf_counter()
@@ -2023,6 +2062,8 @@ def phase_sharded_one_rank(dev, cfg=None):
                 assert torch.equal(getattr(resumed.state, f),
                                    getattr(at10, f)), f"resume: {f} differs"
             resumed_stats = resumed.run(SHARDED_RESUME)
+            assert not on_card or resumed.graphs.replays == \
+                SHARDED_RESUME - 1, resumed.graphs.replays
             del at10
 
         # the single-device step at full width from the same arrangement
@@ -2054,27 +2095,36 @@ def phase_sharded_one_rank(dev, cfg=None):
             assert torch.equal(getattr(sim.state, f), getattr(ref, f)), \
                 f"frame {2 * SHARDED_ITERS}: {f} differs"
         # the single-device loop, from frame graphs on a card, from the
-        # same arrangement at full width
+        # same arrangement at full width, its second batch timed as the
+        # sharded one
         single = NBodySimulation(cfg, device=dev, active_bucketing=False)
         single.state = start
-        single.run(2 * SHARDED_ITERS, batch=SHARDED_ITERS)
+        single.run(SHARDED_ITERS, batch=SHARDED_ITERS)
+        ms_loop = elapsed_ms(lambda: single.run(
+            SHARDED_ITERS, batch=SHARDED_ITERS), dev) / SHARDED_ITERS
         for f in FIELDS:
             assert torch.equal(getattr(single.state, f), getattr(ref, f)), \
                 f"the single-device loop at frame {2 * SHARDED_ITERS}: {f}"
         del single
         ms_single = sum(ms_ref[SHARDED_ITERS:]) / SHARDED_ITERS
+        traced = ("not traced on the CPU" if not on_card else
+                  sharded_trace(sim))
         print(f"phase 11a: slab d=1, {cfg.n_fill} particles, {cfg.slots} "
-              f"slots, impl=blocks over a one-rank {backend} group: "
+              f"slots, impl=blocks over a one-rank {backend} group "
+              f"({replays}): "
               f"{2 * SHARDED_ITERS} frames bit-identical to the "
               f"single-device full-width step (state and stats) and to "
               f"the single-device loop's frame graphs (state), alive "
-              f"{second['n_alive']}; pair-kernel launches {n_launch}, "
-              f"threefry launches {n_rng}; frames "
-              f"{SHARDED_ITERS + 1}-{2 * SHARDED_ITERS} {ms_sharded:.3f} "
+              f"{second['n_alive']}; launches in those frames "
+              f"{ {k: v for k, v in counts.items() if v} }; frames "
+              f"{SHARDED_ITERS + 1}-{2 * SHARDED_ITERS} {ms_sharded:.4f} "
               f"ms/frame sharded (CUDA events around run({SHARDED_ITERS})) "
-              f"beside {ms_single:.3f} ms/frame single-device full width "
+              f"beside {ms_loop:.4f} ms/frame of the single-device loop "
+              f"at full width (the same, its frames 11-20) and "
+              f"{ms_single:.4f} ms/frame of eager single-device steps "
               f"(CUDA events a frame); "
               f"peak memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+        print(f"phase 11a: {traced}")
         print(f"phase 11a: the pair kernel vs its plain version on the "
               f"sharded pass's own inputs, {SUBSET_BLOCKS} evenly spaced "
               f"live blocks: {pair_check_text(checks)}")
@@ -2087,8 +2137,26 @@ def phase_sharded_one_rank(dev, cfg=None):
         dist.destroy_process_group()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-    return dict(ms=ms_sharded, single_ms=ms_single, launches=n_launch,
-                err=checks[0]["err"] or 0.0)
+    return dict(ms=ms_sharded, single_ms=ms_single, loop_ms=ms_loop,
+                launches=n_launch, err=checks[0]["err"] or 0.0)
+
+
+def sharded_trace(sim) -> str:
+    """A trace of :data:`GRAPH_TRACE_FRAMES` replays of the sharded loop's
+    frame (after the frames it checks): kernels, copies and sets a replay,
+    device and wall time, busy share, and the largest kernels."""
+    trace = trace_frames(lambda: sim.graphs.step(sim._KEY, sim._loop_frame),
+                         GRAPH_TRACE_FRAMES, SHARDED_FRAME_FUNCTIONS)
+    largest = sorted(trace["sums"].items(), key=lambda kv: -kv[1][1])[:8]
+    return (f"a trace of {GRAPH_TRACE_FRAMES} replays of the sharded frame "
+            f"(taken {trace['attempts']} times): {trace['kernels']:.1f} "
+            f"kernels and {trace['moves']:.1f} copies/sets a replay, "
+            f"{trace['device_ms']:.4f} ms of device time in "
+            f"{trace['wall_ms']:.4f} ms a frame, device busy "
+            f"{trace['busy']:.1%}; microseconds a frame: " + "; ".join(
+                f"{name[:40]} x{n / GRAPH_TRACE_FRAMES:g} "
+                f"{us / GRAPH_TRACE_FRAMES:.2f}"
+                for name, (n, us) in largest))
 
 
 def phase_sharded_ranks(dev):
@@ -2101,12 +2169,24 @@ def phase_sharded_ranks(dev):
 
     cfg = multi_cfg()
     out = {}
+    # each rank's frames: the threefry kernel, B, C, the pair kernel, D
+    # and E once each (A is the cubic grid's: not on this path)
+    kernels = ("threefry_nbody", "cluster_pair") + FRAME_KERNELS[1:]
     for name, ws, spec, frames in multi_runs():
         t0 = time.perf_counter()
-        got, ms, staged, (n_launch, n_rng), checks = spawn(
+        ranks = spawn(
             rank_nbody, ws, (cfg, spec, frames, MULTI_TIMED, str(dev)),
-            backend="gloo", timeout=SPAWN_TIMEOUT)[0]
+            backend="gloo", timeout=SPAWN_TIMEOUT)
+        got, ms, staged, _, checks, _ = ranks[0]
         wall = time.perf_counter() - t0
+        per = frames if dev.type == "cuda" else 0
+        want = {k: per if k in kernels else 0 for k in ranks[0][3]}
+        want["threefry_flat"] = int(dev.type == "cuda")  # the rank's fill
+        for rank, (*_, counted, _, graphed) in enumerate(ranks):
+            assert counted == want, (name, rank, counted, want)
+            assert not graphed, f"{name}: gloo rank {rank} took graphs"
+        n_launch, n_rng = (ranks[0][3][k] for k in ("cluster_pair",
+                                                     "threefry_nbody"))
         ref = single_device_frames(cfg, spec, frames, dev)
         migrated = 0
         for frame, ((stats, (tags, rows)), (rstats, (rtags, rrows))) in \
@@ -2125,15 +2205,15 @@ def phase_sharded_ranks(dev):
         assert migrated > 0, f"{name}: no particle migrated"
         if spec.splits()[0].halo == MULTI_SLAB_HALO:
             assert all(r["pad"] > 0 for r in checks), (name, checks)
-        assert n_launch == n_rng == (frames if dev.type == "cuda" else 0), \
-            (name, n_launch, n_rng)
-        print(f"phase 11b: {name} on {ws} ranks sharing {dev} over gloo, "
+        print(f"phase 11b: {name} on {ws} ranks sharing {dev} over gloo "
+              f"(eager frames: no rank took graphs), "
               f"{cfg.n_fill} particles, {cfg.slots} slots: {frames} frames "
               f"equal to the single-device run (stats, tag multisets; "
               f"floats by the chaotic rule), no halo or migration drop, "
               f"{migrated} migrants at the busiest rank summed over the "
-              f"frames; rank 0 launched the pair kernel {n_launch} times "
-              f"and the threefry kernel {n_rng}; "
+              f"frames; every rank launched the pair kernel {n_launch} "
+              f"times, the threefry kernel {n_rng} and B, C, D and E "
+              f"{per} each ({', '.join(kernels)}; A none); "
               f"{MULTI_TIMED} more frames {ms:.3f} ms/frame with "
               f"{staged:.0f} bytes staged through the host a frame at rank "
               f"0; {wall:.1f} s with the spawn")
@@ -2149,9 +2229,10 @@ def phase_sharded_ranks(dev):
 
 
 def phase_sharded_emitter(dev, slots=EMIT_SLOTS, dp_slots=DP_SLOTS):
-    """11c: the data-parallel emitter: one rank at 10,485,760 slots bit for
-    bit ``PackedEngine``; two ranks on ``dev`` equal to two local engines
-    salted 0 and 1."""
+    """11c: the data-parallel emitter, ``step_many`` as graph replays on a
+    card: one rank at 10,485,760 slots bit for bit ``PackedEngine`` and
+    the eager frames; two ranks sharing ``dev`` over gloo each bit for bit
+    the eager frames of a local engine salted 0 and 1."""
     import numpy as np
     from particlesystem_tpu_torch.parallel import (ShardedEmitterEngine,
                                                    mesh_1d, spawn)
@@ -2166,19 +2247,32 @@ def phase_sharded_emitter(dev, slots=EMIT_SLOTS, dp_slots=DP_SLOTS):
     es = sharded.step_many(sharded.init(), DP_FRAMES)
     n_launch, n_rng = (launches()[k] for k in ("physics_step",
                                                "threefry_flat"))
+    on_card = dev.type == "cuda"
+    g = sharded.local.graphs
+    runs = (g.eager_frames, g.captures, g.replays)
+    assert runs == ((1, 1, DP_FRAMES - 1) if on_card
+                    else (DP_FRAMES, 0, 0)), runs
     plain = PackedEngine(cfg, alloc="select", layout="packed8", device=dev)
     ps = plain.step_many(plain.init(), DP_FRAMES)
     a, b = engine_state_to_numpy(es), engine_state_to_numpy(ps)
     assert all(np.array_equal(x, y) for x, y in zip(a, b)), \
         "one-rank emitter differs from PackedEngine"
-    on_card = dev.type == "cuda"
+    del ps
+    ps = plain.init()
+    for _ in range(DP_FRAMES):
+        ps = plain._frame(ps, 0)
+    b = engine_state_to_numpy(ps)
+    assert all(np.array_equal(x, y) for x, y in zip(a, b)), \
+        "one-rank emitter differs from the eager frames"
     assert n_launch == n_rng == (DP_FRAMES if on_card else 0), \
         (n_launch, n_rng)
     alive = sharded.alive_count(es)
     print(f"phase 11c: emitter on one rank, {cfg.slots} slots, "
-          f"select/packed8: {DP_FRAMES} frames bit for bit PackedEngine "
-          f"(fields and bookkeeping), alive {alive}, physics launches "
-          f"{n_launch}, threefry launches {n_rng}")
+          f"select/packed8, step_many({DP_FRAMES}) as {runs[0]} eager "
+          f"frame(s), {runs[1]} capture(s) and {runs[2]} replays: bit for "
+          f"bit PackedEngine and its eager frames (fields and "
+          f"bookkeeping), alive {alive}, physics launches {n_launch}, "
+          f"threefry launches {n_rng}")
     del sharded, es, plain, ps, a, b
 
     cfg = bench_scene(dp_slots)
@@ -2189,7 +2283,7 @@ def phase_sharded_emitter(dev, slots=EMIT_SLOTS, dp_slots=DP_SLOTS):
     local = PackedEngine(_local_cfg(cfg, 2), alloc="select",
                          layout="packed8", device=dev)
     total = 0
-    for salt, (leaves, n, alive) in enumerate(ranks):
+    for salt, (leaves, n, alive, runs) in enumerate(ranks):
         s = local.init()
         for _ in range(DP_FRAMES):
             s = local._frame(s, salt)
@@ -2197,6 +2291,8 @@ def phase_sharded_emitter(dev, slots=EMIT_SLOTS, dp_slots=DP_SLOTS):
         assert all(np.array_equal(x, y) for x, y in zip(leaves, want)), \
             f"rank {salt} differs from the local engine salted {salt}"
         assert n == ((DP_FRAMES,) * 2 if on_card else (0, 0)), n
+        assert runs == ((1, 1, DP_FRAMES - 1) if on_card
+                        else (DP_FRAMES, 0, 0)), (salt, runs)
         total += int(local.alive_count(s))
         assert alive == ranks[0][2]
     assert ranks[0][2] == total > 0
@@ -2204,8 +2300,10 @@ def phase_sharded_emitter(dev, slots=EMIT_SLOTS, dp_slots=DP_SLOTS):
         print(f"phase 11c: compute processes on the card after the spawn: "
               f"{card_processes()}")
     print(f"phase 11c: emitter on 2 ranks sharing {dev} over gloo, "
-          f"{cfg.slots} slots: {DP_FRAMES} frames of each rank bit for bit "
-          f"the local engine salted with its index, alive {total} (psum), "
+          f"{cfg.slots} slots: step_many({DP_FRAMES}) on each rank "
+          f"(eager frames, captures, replays {ranks[0][3]}) bit for bit "
+          f"the eager frames of a local engine salted with its index, "
+          f"alive {total} (psum), "
           f"{ranks[0][1]} physics and threefry launches a rank; "
           f"{wall:.1f} s with the "
           f"spawn")
@@ -2258,8 +2356,10 @@ def emitter_frames(kw: dict) -> int:
 def bench_stage_fns(dev, cut=None, checks=None):
     """{stage: thunk} of the bench at the counts of ``cut``.  With
     ``checks`` (a dict), each n-body stage runs under :func:`pair_checks`
-    on its first and last pass, on :data:`BENCH_CHECK_BLOCKS` live blocks,
-    and leaves its records in ``checks[stage]``."""
+    on its first and last pass run in Python (the sharded loop's one
+    eager frame; the single-device loop's first and last key's), on
+    :data:`BENCH_CHECK_BLOCKS` live blocks, and leaves its records in
+    ``checks[stage]``."""
     from particlesystem_tpu_torch import bench
     from particlesystem_tpu_torch.core.config import GridSpec, NBodyConfig
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
@@ -2276,16 +2376,16 @@ def bench_stage_fns(dev, cut=None, checks=None):
         sharded = name == "nbody_sharded_d1"
         slots = NBodyConfig(n_fill=kw["n_fill"],
                             grid=GridSpec(grid_dim=kw["grid_dim"])).slots
-        # the sharded step runs every pass in Python; the single-device
-        # loop only each key's first frame, its other frames replayed
-        last = bench_passes(name, kw) - 1 if sharded else LAST
-        with pair_checks(nbody_sharded if sharded else nbk, (0, last),
+        # a loop runs only each key's first frame in Python, its other
+        # frames replayed: the sharded loop has one key, the single-device
+        # loop one a prefix
+        at = (0,) if sharded else (0, LAST)
+        with pair_checks(nbody_sharded if sharded else nbk, at,
                          slots if sharded else None,
                          BENCH_CHECK_BLOCKS) as recs:
             out = fns[name](device=dev, **kw)
         calls = [r["call"] for r in recs]
-        assert len(calls) == 2 and calls[0] == 0 and (
-            calls[1] == last or last == LAST), (name, recs)
+        assert calls[0] == 0 and len(calls) == len(at), (name, recs)
         checks[name] = recs
         return out
 
@@ -2325,13 +2425,13 @@ def phase_bench(dev, cut=None):
                 counts["physics_step"], counts["threefry_flat"]) == (
             passes, passes, frames, frames + nbody_stages), (
                 counts, passes, frames)
-        # A, D and E once a single-device frame; B and C once a pass of
-        # either path (the decomposed step's prepare runs them too)
+        # A once a single-device frame; B-E once a pass of either path
+        # (the decomposed frame runs all but A)
         single = passes - sum(bench_passes(name, kw)
                               for name, kw in cut.items()
                               if name == "nbody_sharded_d1")
         assert [counts[k] for k in FRAME_KERNELS] == [
-            single, passes, passes, single, single], (counts, single)
+            single, passes, passes, passes, passes], (counts, single)
     err = max([r["err"] or 0.0 for recs in checks.values() for r in recs],
               default=0.0)
     print(f"phase 12a: bench stages at cut counts "
@@ -3007,6 +3107,10 @@ def phase_graphs_engine(dev):
 
 #: frames of phase 15's kernel frames against the plain frames
 FRAME_HOLD_FRAMES = 20
+#: phase 15's slab rank: 4 ranks of 4 planes; halo buffers that hold a
+#: plane of the full-width fill (~65,536 particles) and leave the pass
+#: off the pair kernel's 512-row blocks
+SLAB_RANKS, SLAB_HALO = 4, 70_000
 #: each frame kernel's XLA counterpart in the JAX package (there is no
 #: Pallas kernel there), by file and line
 FRAME_REPLACES = dict(
@@ -3292,6 +3396,15 @@ def phase_frame_kernels(dev, plateau_state, plateau_frame: int):
     stats = fs.hold_prepare(dcfg, args, dims, ids)
     print(f"phase 15: dims {dims} with ids and {int((ids == -1).sum())} "
           f"padding rows: B and C == plain bit for bit; stats {stats}")
+    case = fs.slab_case(cfg, nbody.init_fill(cfg, dev), SLAB_RANKS, 1,
+                        SLAB_HALO, 0)
+    stats = fs.hold_slab(case)
+    print(f"phase 15: rank 1 of a slab of {SLAB_RANKS} at full width, "
+          f"frame 0, dims {case.dims}, halo buffers of {SLAB_HALO} rows: "
+          f"D over the pass's {stats.pop('rows')} rows for its "
+          f"{stats.pop('slots')} slots == plain bit for bit, then E, and "
+          f"nbody_sharded.blocks_lifecycle in place; stats {stats}")
+    del case
     frames = fs.hold_frames(cfg, FRAME_HOLD_FRAMES, dev)
     print(f"phase 15: {FRAME_HOLD_FRAMES} frames of nbody.step (the "
           f"kernels) == {FRAME_HOLD_FRAMES} frames composed of the plain "

@@ -25,8 +25,9 @@ sizes, in one process:
   prefix, no spawn capped, no neighbour chunk dropped.
 * ``nbody_sharded_d1``: ``DistributedNBodySimulation`` with
   ``SlabSpec(n_devices=1, impl="blocks")`` over a one-rank group (NCCL on
-  a card) at 1M, full width (the sharded driver picks no prefix), timed
-  the same way; its three drop counters must stay 0.
+  a card, where its frames replay one captured graph, the all-reduces in
+  it) at 1M, full width (the sharded driver picks no prefix), timed the
+  same way; its three drop counters must stay 0.
 
 Times are CUDA events on a card (the host clock on the CPU, where the
 tests run every stage tiny).  Each stage also reports its peak device

@@ -118,9 +118,12 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], device) -> ParticleState:
 
 
 def state_to_numpy(state: ParticleState) -> Dict[str, np.ndarray]:
-    """Inverse of :func:`state_from_numpy`; tags come back as uint32."""
+    """Inverse of :func:`state_from_numpy`; tags come back as uint32.  The
+    arrays are a snapshot, never views of the state's tensors: the frame
+    loops write their states in place."""
     out = {}
     for f in FIELDS:
-        a = getattr(state, f).detach().cpu().numpy()
+        t = getattr(state, f).detach()
+        a = t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
         out[f] = a.astype(np.uint32) if f == "tag" else a
     return out

@@ -38,12 +38,15 @@
 //                        its chunk's counter
 //     the pair kernel (neighbor_blocks.cu)
 //   D ps_nbody_lifecycle one thread a slot, slot order: the pair outputs
-//                        read through inv, kill/touch and the mine-side
+//                        read through inv (the pass may have more rows
+//                        than the slots: a rank's halo and padding rows
+//                        follow its own), kill/touch and the mine-side
 //                        age window, the five flags, clamped Euler, the
 //                        wrap (pos_w is recomputed here from pos), aging,
 //                        explosion; explode/free flags and their counts a
 //                        tile of 256 slots; its block 0 reduces C's chunk
-//                        counters to the largest chunk and zeroes them
+//                        counters (where the pass has them: the cubic
+//                        grid's) to the largest chunk and zeroes them
 //   E ps_nbody_spawn     a memset of its status words, then two kernels.
 //                        spawn_rank: one pass with a decoupled look-back
 //                        (Merrill and Garland 2016), a block a tile of
@@ -462,7 +465,7 @@ __global__ void __launch_bounds__(PREP_THREADS) block_prepare(
 
 // D: the lifecycle of every slot, in slot order
 __global__ void __launch_bounds__(THREADS) nbody_lifecycle(
-    State in, State out, const float* __restrict__ acc_s,
+    State in, State out, const float* __restrict__ acc_s, long long n_rows,
     const int* __restrict__ gmax_s,
     const unsigned char* __restrict__ overflow_s,
     const int* __restrict__ inv, const float* __restrict__ uvec, Life c,
@@ -480,7 +483,8 @@ __global__ void __launch_bounds__(THREADS) nbody_lifecycle(
     if (s < n) {
         // every read of the slot before any write (out may be in)
         const int q = inv[s];
-        const float a[3] = {acc_s[q], acc_s[n + q], acc_s[2 * n + q]};
+        const float a[3] = {acc_s[q], acc_s[n_rows + q],
+                            acc_s[2 * n_rows + q]};
         const int gm = gmax_s[q];
         ovf = overflow_s[q];
         float p[3] = {in.pos[3 * s], in.pos[3 * s + 1], in.pos[3 * s + 2]};
@@ -963,20 +967,22 @@ extern "C" int ps_block_prepare(
 // D: the lifecycle of n slots.  fields (host, 16 pointers): in pos, vel, w,
 // age, life, out pos, vel, acc, w, age, life; then alive, parent in, alive,
 // parent out (bools, in bools) and the tags in and out (tags, 2); out may
-// be in.  acc_s (3, n), gmax_s, overflow_s in sorted order, read through
-// inv; uvec (n, 3).  consts (host): dt, particle_life, kid_age, max_dx,
-// max_v, explosion_speed, float32(1 / cell_size), cell_size.  Writes flags
-// (n,) uint8 (1 explode, 2 free) and tiles (ceil(n / 256), 2) int32;
-// stats[MAX_CHUNK] the largest of the n_chunks counters after N_STATS,
-// which it zeroes.
+// be in.  acc_s (3, n_rows), gmax_s, overflow_s (n_rows,) in sorted order
+// of a pass over n_rows >= n rows, read through the first n entries of inv
+// (slot -> sorted row); uvec (n, 3).  consts (host): dt, particle_life,
+// kid_age, max_dx, max_v, explosion_speed, float32(1 / cell_size),
+// cell_size.  Writes flags (n,) uint8 (1 explode, 2 free) and tiles
+// (ceil(n / 256), 2) int32; with n_chunks > 0, stats[MAX_CHUNK] the largest
+// of the n_chunks counters after N_STATS, which it zeroes (n_chunks = 0: a
+// pass without them, and stats[MAX_CHUNK] is left alone).
 extern "C" int ps_nbody_lifecycle(
     float* const* fields, unsigned char* const* bools, long long* const* tags,
-    const float* acc_s, const int* gmax_s, const unsigned char* overflow_s,
-    const int* inv, const float* uvec, long long n, const float* consts,
-    int g, int n_chunks, unsigned char* flags, int* tiles, long long* stats,
-    void* stream)
+    const float* acc_s, long long n_rows, const int* gmax_s,
+    const unsigned char* overflow_s, const int* inv, const float* uvec,
+    long long n, const float* consts, int g, int n_chunks,
+    unsigned char* flags, int* tiles, long long* stats, void* stream)
 {
-    if (n < 0 || g <= 0 || n_chunks < 0)
+    if (n < 0 || n_rows < n || g <= 0 || n_chunks < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0) return 0;
     float* fi[6] = {fields[0], fields[1], nullptr, fields[2], fields[3],
@@ -987,8 +993,8 @@ extern "C" int ps_nbody_lifecycle(
                  consts[5], Grid{g, g / 2, consts[6], consts[7]}};
     nbody_lifecycle<<<blocks_for(n, THREADS), THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-        in, out, acc_s, gmax_s, overflow_s, inv, uvec, c, n_chunks, flags,
-        tiles, stats);
+        in, out, acc_s, n_rows, gmax_s, overflow_s, inv, uvec, c, n_chunks,
+        flags, tiles, stats);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,9 @@ computes outside the pair kernel, the threefry draw and the sort.
   mine-side collision window and the first part of ``lifecycle_update``
   (flags, clamped Euler, wrap, aging, explosion), writing the next state;
   explode/free flags and their counts a tile of :data:`TILE` slots; the
-  largest chunk, from C's counts.
+  largest chunk, from C's counts where the pass has them.  The pass may
+  have more rows than D has slots: a rank's halo-extended rows
+  (``parallel/nbody_sharded.blocks_lifecycle``), its own slots first.
 * E :func:`nbody_spawn` — the spawn part of ``lifecycle_update``: the
   i-th exploding parent (ascending slot) meets the i-th free slot for
   ``i < k = min(n_child, n_free, e)``: on the card a memset of its
@@ -37,7 +39,8 @@ tensors take the plain version (``*_plain``); any other device raises.
 :func:`sort_and_prepare` runs the sort, B and C in the frame's order for
 every caller (``models/nbody.blocks_frame`` and
 ``api.NBodySimulation.profile_frame`` through :func:`cells_and_rows`,
-``neighbor_blocks.prepare`` on the state's arrays).
+``neighbor_blocks.prepare`` on the state's arrays, the decomposed frame's
+``parallel/nbody_sharded.extended_pass`` on a rank's extended rows).
 
 The statistics of a frame go into one int64 buffer (:func:`new_stats`,
 zeros): :data:`STATS` names its entries, those of
@@ -122,6 +125,18 @@ def _set(stats, name: str, value) -> None:
 
 def _chunk_counters(stats, num_chunks: int) -> torch.Tensor:
     return stats[len(STATS):len(STATS) + num_chunks]
+
+
+def stats_chunks(stats, grid: GridSpec) -> int:
+    """The chunk counters a statistics buffer carries: the cubic
+    ``grid``'s, or none (a pass over another grid).  Raises for any other
+    length."""
+    n = stats.shape[0] - len(STATS)
+    if n not in (0, grid.num_chunks):
+        raise ValueError(f"stats must be new_stats(device) or new_stats("
+                         f"device, {grid.num_chunks}), got {n} chunk "
+                         f"counters")
+    return n
 
 
 # --- checks and launch ----------------------------------------------------------
@@ -577,6 +592,14 @@ def lifecycle_flags(state: ParticleState, pos_w, overflow, acc, kill, touch,
                               n_survivals=count(survive))
 
 
+def _pass_rows(acc_s, n: int) -> int:
+    """The rows of the pass D reads, at least its ``n`` slots."""
+    m = acc_s.shape[-1]
+    if m < n:
+        raise ValueError(f"a pass of {m} rows for {n} slots")
+    return m
+
+
 def tile_counts(explode, free) -> torch.Tensor:
     """(ceil(N / :data:`TILE`), 2) int32: the explode and free slots of
     each tile (D's ``tiles``)."""
@@ -597,14 +620,19 @@ def _copy_into(out: ParticleState, st: ParticleState) -> None:
 def nbody_lifecycle_plain(state: ParticleState, out: ParticleState, acc_s,
                           gmax_s, overflow_s, inv, uvec, cfg: NBodyConfig,
                           stats):
-    """Plain version of D: the pair kernel's sorted outputs (acc_s (3, N),
-    gmax_s, overflow_s) read through ``inv``, the mine-side collision age
-    window, :func:`lifecycle_flags`; the next state (before the spawn)
-    written into ``out`` (which may be ``state``), ``stats``' counts, and
-    its largest chunk from the chunk counters of ``cfg.grid``, which are
-    left zero.  Returns (flags (N,) uint8, 1 explode and 2 free; tiles
-    (ceil(N/TILE), 2) int32, the explode and free counts of each tile)."""
-    rows = inv.to(torch.int64)
+    """Plain version of D on the N slots of ``state``: the pair kernel's
+    sorted outputs of a pass over M >= N rows (acc_s (3, M), gmax_s,
+    overflow_s (M,)) read through the first N entries of ``inv`` (slot ->
+    sorted row), the mine-side collision age window,
+    :func:`lifecycle_flags`; the next state (before the spawn) written into
+    ``out`` (which may be ``state``), ``stats``' counts and, where it
+    carries the chunk counters of ``cfg.grid`` (:func:`stats_chunks`),
+    its largest chunk from them, which are left zero.  Returns (flags (N,)
+    uint8, 1 explode and 2 free; tiles (ceil(N/TILE), 2) int32, the
+    explode and free counts of each tile)."""
+    num_chunks = stats_chunks(stats, cfg.grid)
+    _pass_rows(acc_s, state.slots)
+    rows = inv[:state.slots].to(torch.int64)
     acc = acc_s.T[rows]
     gmax = gmax_s[rows]
     overflow = overflow_s[rows]
@@ -619,9 +647,10 @@ def nbody_lifecycle_plain(state: ParticleState, out: ParticleState, acc_s,
     for name, v in counts.items():
         _add(stats, name, v)
     _add(stats, "n_alive", nxt.alive.sum(dtype=torch.int64))
-    counters = _chunk_counters(stats, cfg.grid.num_chunks)
-    _set(stats, "max_chunk_occupancy", counters.max())
-    counters.zero_()
+    if num_chunks:
+        counters = _chunk_counters(stats, num_chunks)
+        _set(stats, "max_chunk_occupancy", counters.max())
+        counters.zero_()
     free = ~nxt.alive
     flags = explode.to(torch.uint8) | (free.to(torch.uint8) << 1)
     return flags, tile_counts(explode, free)
@@ -634,15 +663,20 @@ def nbody_lifecycle_cuda(state: ParticleState, out: ParticleState, acc_s,
     reduces the chunk counters); same contract as the plain version."""
     dev = _cuda_device(state.pos, nbody_lifecycle_cuda)
     n = state.slots
+    m = _pass_rows(acc_s, n)
     _check_state(dev, state, n, "state")
     _check_state(dev, out, n, "out")
-    _check(dev, acc_s, torch.float32, (3, n), "acc_s")
-    _check(dev, gmax_s, torch.int32, (n,), "gmax_s")
-    _check(dev, overflow_s, torch.bool, (n,), "overflow_s")
-    _check(dev, inv, torch.int32, (n,), "inv")
+    _check(dev, acc_s, torch.float32, (3, m), "acc_s")
+    _check(dev, gmax_s, torch.int32, (m,), "gmax_s")
+    _check(dev, overflow_s, torch.bool, (m,), "overflow_s")
+    if inv.dim() != 1 or inv.shape[0] < n:
+        raise ValueError(f"inv must map the {n} slots, got "
+                         f"{tuple(inv.shape)}")
+    _check(dev, inv, torch.int32, inv.shape, "inv")
     _check(dev, uvec, torch.float32, (n, 3), "uvec")
     g = cfg.grid
-    _check_stats(dev, stats, g.num_chunks)
+    num_chunks = stats_chunks(stats, g)
+    _check_stats(dev, stats, num_chunks)
     flags = torch.empty((n,), dtype=torch.uint8, device=dev)
     tiles = torch.empty((-(-n // TILE), 2), dtype=torch.int32, device=dev)
     consts = np.asarray([cfg.dt, cfg.particle_life, cfg.kid_age, cfg.max_dx,
@@ -656,10 +690,9 @@ def nbody_lifecycle_cuda(state: ParticleState, out: ParticleState, acc_s,
     tags = (ctypes.c_void_p * 2)(state.tag.data_ptr(), out.tag.data_ptr())
     _launch("ps_nbody_lifecycle", dev, ctypes.addressof(fields),
             ctypes.addressof(bools), ctypes.addressof(tags), acc_s.data_ptr(),
-            gmax_s.data_ptr(), overflow_s.data_ptr(), inv.data_ptr(),
-            uvec.data_ptr(), n, consts.ctypes.data, g.grid_dim,
-            g.num_chunks, flags.data_ptr(), tiles.data_ptr(),
-            stats.data_ptr())
+            m, gmax_s.data_ptr(), overflow_s.data_ptr(), inv.data_ptr(),
+            uvec.data_ptr(), n, consts.ctypes.data, g.grid_dim, num_chunks,
+            flags.data_ptr(), tiles.data_ptr(), stats.data_ptr())
     count_launch(nbody_lifecycle_cuda)
     return flags, tiles
 

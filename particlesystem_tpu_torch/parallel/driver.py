@@ -13,7 +13,11 @@ provides:
 * ``run``: batched frames with the drop counters summed and the buffer
   high-water marks kept on the device, one host readback a batch (with
   NCCL, or a lone rank, no host synchronisation inside a frame; gloo moves
-  each exchange through host memory);
+  each exchange through host memory).  On a mesh of one rank whose
+  collectives a CUDA graph can hold (:func:`graph_frames`) each frame is a
+  replay of one captured frame (``utils/frame_graph.FrameGraphs``), the
+  counterpart of the JAX driver's jitted ``fori_loop`` batch; elsewhere
+  the same frame runs eagerly;
 * ``gather`` and ``alive_count``;
 * ``save`` / ``load``: the sharded checkpoint directory (each process
   writes and, on the same spec, reads back only its own rows); a
@@ -39,18 +43,32 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import NBodyConfig
 from ..core.state import FIELDS, ParticleState, state_from_numpy, zero_state
 from ..models import nbody
 from ..runtime import checkpoint
+from ..utils.frame_graph import FrameGraphs
 from ..utils.timers import PhaseTimers, slope_ms
 from .mesh import default_mesh, rank_device
 from .nbody_brick import BrickSpec
 from .nbody_pencil import PencilSpec
-from .nbody_sharded import SlabSpec, _distribute, local_rows, make_step
+from .nbody_sharded import (STATS, SlabSpec, _distribute, local_rows,
+                            make_step)
 
 _SPECS = (SlabSpec, PencilSpec, BrickSpec)
+
+
+def graph_frames(size: int, backend: Optional[str]) -> bool:
+    """Whether the driver replays captured frames on a mesh of ``size``
+    ranks over a group of ``backend`` (None: no group): on one rank with
+    no group, where every collective is the identity, or over NCCL, whose
+    one-rank all-reduces a capture holds.  Gloo runs eagerly: it stages
+    every collective through host memory, which a capture refuses.  A
+    mesh of several NCCL ranks runs eagerly too: its collectives under
+    capture across cards are not yet checked."""
+    return size == 1 and backend in (None, "nccl")
 
 
 class DistributedNBodySimulation:
@@ -60,6 +78,14 @@ class DistributedNBodySimulation:
     ``mesh`` defaults to :func:`.mesh.default_mesh` of the spec's shape
     over it.  ``device`` is this rank's device (default
     ``cuda:{LOCAL_RANK}``; ranks share one only when the caller passes it).
+
+    The frame loop (:meth:`run`) reads and writes one static state,
+    ``self.state`` after a batch, with the frame on the device; a state
+    assigned to ``self.state`` (``load``, a caller) is copied into it at
+    the next batch.  Where :func:`graph_frames` allows, ``graphs`` (a
+    ``FrameGraphs``: eager frames, captures, replays) runs each frame, a
+    capture that fails raises; elsewhere ``graphs`` is None and every
+    frame runs eagerly.
 
     >>> sim = DistributedNBodySimulation(cfg, BrickSpec(2, 2, 2), group=g)
     >>> sim.run(10); sim.save("ckpt"); sim.validate()
@@ -90,12 +116,75 @@ class DistributedNBodySimulation:
             state, self.n_fill_dropped = _distribute(
                 state.to(self.device), cfg, self.spec.splits())
             self.state = self._local(state)
+        # the frame loop's static buffers: the state, the frame on the
+        # device, the last frame's statistics (STATS) and the batch's
+        # summed drops and maxed marks
+        dev = self.device
+        group = self.mesh.group
+        backend = None if group is None else dist.get_backend(group)
+        self.graphs = (FrameGraphs(dev) if graph_frames(self.mesh.size,
+                                                        backend) else None)
+        self._static = self.state
+        self._frame_t = torch.zeros((), dtype=torch.int64, device=dev)
+        self._stats = torch.zeros((len(STATS),), dtype=torch.int64,
+                                  device=dev)
+        self._marks = torch.zeros((len(self._SUM_KEYS + self._MAX_KEYS),),
+                                  dtype=torch.int64, device=dev)
 
     def _local(self, state: ParticleState) -> ParticleState:
         """This rank's slots of a global state, as its own tensors."""
         return state.map(lambda a: a[self._rows].to(self.device).clone())
 
     # -- simulation -----------------------------------------------------------
+    #: the key of the one frame graph: every batch size replays it
+    _KEY = "frame"
+
+    def _loop_frame(self) -> None:
+        """The frame the graphs capture: the static state to the next
+        (in place, or copied back where the step built it anew), its
+        statistics into their buffer, the drops summed and the marks
+        maxed into theirs, the device frame one on."""
+        st = self._static
+        out, stats = self._step(st, self._frame_t)
+        for f in FIELDS:
+            dst, src = getattr(st, f), getattr(out, f)
+            if src.data_ptr() != dst.data_ptr():
+                dst.copy_(src)
+        self._stats.copy_(torch.stack([stats[k] for k in STATS]))
+        m, n_sum = self._marks, len(self._SUM_KEYS)
+        # over EVERY frame: a drop or a mark of one frame is not the last's
+        m.copy_(torch.cat([
+            m[:n_sum] + torch.stack([stats[k] for k in self._SUM_KEYS]),
+            torch.maximum(m[n_sum:], torch.stack(
+                [stats[k] for k in self._MAX_KEYS]))]))
+        self._frame_t.add_(1)
+
+    def _enter(self) -> None:
+        """Make ``self.state`` the static state, copying an assigned
+        state into it."""
+        if self.state is not self._static:
+            for f in FIELDS:
+                getattr(self._static, f).copy_(getattr(self.state, f))
+            self.state = self._static
+
+    def _batch(self, batch: int) -> dict:
+        """``batch`` frames from ``self.state`` in place (graph replays
+        where :attr:`graphs` runs them); returns the last frame's
+        statistics with the batch's summed drops and maxed marks, read in
+        the batch's one host readback."""
+        self._enter()
+        self._frame_t.fill_(self.frame)
+        self._marks.zero_()
+        for _ in range(batch):
+            if self.graphs is None:
+                self._loop_frame()
+            else:
+                self.graphs.step(self._KEY, self._loop_frame)
+        host = torch.cat([self._stats, self._marks]).tolist()
+        stats = dict(zip(STATS, host[:len(STATS)]))
+        stats.update(zip(self._SUM_KEYS + self._MAX_KEYS, host[len(STATS):]))
+        return stats
+
     def run(self, num_iterations: int = 10, verbose: bool = False,
             batch: int = 0) -> dict:
         """Advance ``num_iterations`` frames.  ``batch=0`` auto-batches
@@ -104,7 +193,9 @@ class DistributedNBodySimulation:
         high-water marks maximised on the device, and reads them with the
         last frame's statistics in one host readback a batch: the returned
         statistics then carry the whole batch's drops and marks.
-        ``batch=1`` reads every frame's statistics."""
+        ``batch=1`` reads every frame's statistics.  Where :attr:`graphs`
+        runs the loop, each frame after the first is one replay, whatever
+        the batch."""
         if batch == 0:
             from ..api import auto_batch
             batch = auto_batch(num_iterations)
@@ -113,22 +204,7 @@ class DistributedNBodySimulation:
                              f"multiple of batch {batch}")
         for _ in range(num_iterations // batch):
             with self.timers.phase("step"):
-                acc = None
-                for i in range(batch):
-                    self.state, stats = self._step(self.state,
-                                                   self.frame + i)
-                    if acc is None:
-                        acc = {k: stats[k] for k in
-                               self._SUM_KEYS + self._MAX_KEYS}
-                    else:
-                        for k in self._SUM_KEYS:
-                            acc[k] = acc[k] + stats[k]
-                        for k in self._MAX_KEYS:
-                            acc[k] = torch.maximum(acc[k], stats[k])
-                stats = dict(stats, **acc)
-                keys = list(stats)
-                values = torch.stack([stats[k] for k in keys]).tolist()
-                stats = dict(zip(keys, values))  # the batch's one readback
+                stats = self._batch(batch)
             self.frame += batch
             self.last_stats = stats
             drops = {k: stats[k] for k in self._SUM_KEYS if stats[k]}
@@ -260,7 +336,7 @@ class DistributedNBodySimulation:
         from ..cpu_ref import oracle_nbody
         from ..cpu_ref.oracle_emitter import NpState
 
-        dev = self.state
+        dev = self.state.map(lambda a: a.clone())  # the step writes it
         ora = NpState.from_torch(self._host_state_no_gather(scratch_dir))
         events_match = True
         worst = 0.0
@@ -302,22 +378,30 @@ class DistributedNBodySimulation:
     # -- profiling ------------------------------------------------------------
     def profile_frame(self, k1: int = 2, k2: int = 6, reps: int = 3) -> dict:
         """The frame's milliseconds: the median of ``reps`` slopes between
-        runs of ``k1`` and ``k2`` frames from the current state, after a
-        warm-up run of ``k1`` (``utils/timers.slope_ms``: CUDA events on a
-        card, the host clock on the CPU), so that a run's fixed cost
+        batches of ``k1`` and ``k2`` frames of :meth:`run`'s loop (graph
+        replays where it replays them), each from the current state, after
+        a warm-up batch of ``k1`` (``utils/timers.slope_ms``: CUDA events
+        on a card, the host clock on the CPU), so that a run's fixed cost
         cancels.  The sharded step is the unit: its stages are the
         single-device driver's (``api.NBodySimulation.profile_frame``) plus
-        the exchanges.  Collective; does not advance the state."""
+        the exchanges.  Collective; the state (put back after each batch)
+        and the frame are as they were."""
         if not 0 < k1 < k2:
             raise ValueError(f"need 0 < k1 < k2, got k1={k1} k2={k2}")
+        self._enter()
+        saved = self.state.map(lambda a: a.clone())
+
+        def restore():
+            for f in FIELDS:
+                getattr(self.state, f).copy_(getattr(saved, f))
 
         def run_k(k):
-            s = self.state
-            for i in range(k):
-                s, _ = self._step(s, self.frame + i)
+            restore()
+            self._batch(k)
 
-        run_k(k1)
+        run_k(k1)  # the frame's eager run and capture, if it has none yet
         ms = slope_ms(run_k, k1, k2, max(1, reps), self.device)
+        restore()
         self.timers.totals["frame/full_frame"] += ms / 1e3
         self.timers.counts["frame/full_frame"] += 1
         return {"full_frame": ms}
@@ -331,7 +415,7 @@ class DistributedNBodySimulation:
         with ``ceil(mark * margin)`` rows (at least ``floor``).  Returns
         the new sizes.  A later frame that still overflows warns in
         ``run``, and every drop is counted."""
-        s = self.state
+        s = self.state.map(lambda a: a.clone())  # the step writes it
         halo_hw = mig_hw = 0
         for i in range(frames):
             s, stats = self._step(s, self.frame + i)
@@ -344,6 +428,8 @@ class DistributedNBodySimulation:
             kw["halo1_capacity"] = kw["halo_capacity"]
         self.spec = dataclasses.replace(self._spec_raw, **kw).derive(self.cfg)
         self._step = make_step(self.cfg, self.spec, self.mesh)
+        if self.graphs is not None:
+            self.graphs.retain()  # captured with the old capacities
         return kw
 
 

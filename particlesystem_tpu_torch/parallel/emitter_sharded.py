@@ -7,6 +7,10 @@ parallelism: each rank runs an independent :class:`PackedEngine` over
 index folded into its spawn keys (``salt``), so its stream is its own.
 No collective runs inside a frame; global counts reduce with ``psum`` on
 demand.  D ranks simulate D times the particles at one rank's frame time.
+So every rank runs its frames as its engine's graph replays (the JAX
+engine's ``fori_loop`` inside ``shard_map``), over any backend, gloo
+ranks that share a card included: the salt is the engine's, baked into
+its graphs.
 
 The checkpoint is the JAX engine's global layout: the fields of rank d at
 rows ``[d*rows, (d+1)*rows)`` of ``(D*rows, ...)`` arrays, and a leading
@@ -60,24 +64,24 @@ class ShardedEmitterEngine:
         self.timers = PhaseTimers()
         self.local = PackedEngine(_local_cfg(cfg, self.d), alloc=alloc,
                                   refresh_interval=refresh_interval,
-                                  layout=layout, device=rank_device(device))
+                                  layout=layout, device=rank_device(device),
+                                  salt=self.index)
 
     def init(self) -> EngineState:
         return self.local.init()
 
     def step(self, s: EngineState) -> EngineState:
-        """One frame of this rank's engine, salted with its index;
-        consumes ``s``."""
-        with self.timers.phase("step"):
-            return self.local._frame(s, self.index)
+        """One frame of this rank's engine, salted with its index, as
+        ``PackedEngine.step`` runs it (a graph replay on a card); consumes
+        ``s`` and returns the engine's static state."""
+        return self.step_many(s, 1)
 
     def step_many(self, s: EngineState, k: int) -> EngineState:
-        """``k`` frames queued back to back, bit for bit ``k`` :meth:`step`
-        calls."""
+        """``k`` frames queued back to back, ``k`` graph replays on a
+        card: bit for bit ``k`` :meth:`step` calls, and the eager frames
+        ``local._frame(s, index)``."""
         with self.timers.phase("step"):
-            for _ in range(k):
-                s = self.local._frame(s, self.index)
-            return s
+            return self.local.step_many(s, k)
 
     def alive_count(self, s: EngineState) -> int:
         """Alive slots over every rank."""

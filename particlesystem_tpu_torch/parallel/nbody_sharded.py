@@ -15,6 +15,9 @@ ranks, ``set_pkg_segments``, ``app_common.cu:150-232``):
   (``dims = (G, G, P+2)``), with the global slot ids as the pair
   self-exclusion identity (unique across ranks) and the persistent tags as
   the collision order, so kill/survive decisions are a single device's;
+  with ``impl="blocks"`` it is the single-device frame's kernels on the
+  extended rows (:func:`blocks_lifecycle`: the sort, B and C, the pair
+  kernel, then D and E on the rank's own slots, in place);
 * **migration** (cyclic: the torus wrap crosses the ring seam): particles
   that left the slab (one plane a frame at most, ``MAX_DX <= CELL_SIZE``)
   are packed, sent, and merged into the destination's free slots in
@@ -45,10 +48,20 @@ from ..core.config import NBodyConfig
 from ..core.state import FIELDS, ParticleState
 from ..models.nbody import frame_fields, lifecycle_update
 from ..ops import compact
+from ..ops import frame_kernels as fk
+from ..ops import neighbor_blocks as nbk
+from ..ops.frame_kernels import Fields, sort_and_prepare
 from ..ops.grid import build_bins, cell_coords, wrap_positions
 from ..ops.neighbor import collision_okey, neighbor_pass
-from ..ops.neighbor_blocks import B as NB_B
-from ..ops.neighbor_blocks import neighbor_pass_blocks
+
+#: the lifecycle's counts, summed over the mesh
+COUNTS = ("n_age_deaths", "n_collision_kills", "n_overflow_kills",
+          "n_survivals", "n_spawned", "n_spawn_capped")
+#: the step's statistics: the sums over the mesh, then the maxima
+SUM_STATS = COUNTS + ("n_alive", "halo_dropped", "n_listed_dropped",
+                      "migration_dropped")
+MAX_STATS = ("halo_used_max", "migration_used_max", "max_cell_occupancy")
+STATS = SUM_STATS + MAX_STATS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,12 +225,80 @@ def _migrate_axis(st: ParticleState, mesh, s: Split, cfg: NBodyConfig,
     return st3, dropped, used
 
 
+def extended_cell(coords, base: dict, p: dict, ext) -> torch.Tensor:
+    """Cell ids on a rank's extended grid (``ext`` cells along i1, i2, i3)
+    of rows at the global cell ``coords`` (N, 3): a split axis (a column
+    of ``base``, the rank's first cell, and ``p``, its cells) shifted by
+    the rank's first cell less one and clamped into its halo layers, the
+    other axes as they are."""
+    lp = {}
+    for col in (0, 1, 2):
+        c = coords[:, col]
+        lp[col] = (torch.clamp(c - (base[col] - 1), 0, p[col] + 1)
+                   if col in p else c)
+    return lp[2] * (ext[0] * ext[1]) + lp[0] * ext[1] + lp[1]
+
+
+def pad_rows(rows: Fields, cell, valid):
+    """The pass's rows padded to a multiple of the pair kernel's block with
+    invalid rows of id -1: (rows, cell, valid)."""
+    pad = (-rows.pos.shape[0]) % nbk.B
+    if not pad:
+        return rows, cell, valid
+
+    def padf(a, v):
+        return torch.cat([a, torch.full((pad,) + a.shape[1:], v,
+                                        dtype=a.dtype, device=a.device)])
+    return (Fields(padf(rows.pos, 0.0), padf(rows.age, 0.0),
+                   padf(rows.w, 0.0), padf(rows.tags, 0), padf(rows.ids, -1)),
+            padf(cell, 0), padf(valid, False))
+
+
+def extended_pass(rows: Fields, cell, valid, dims, cfg: NBodyConfig):
+    """The blocks pass over a rank's halo-extended rows ``rows``
+    (:class:`~..ops.frame_kernels.Fields` with the global ids), binned at
+    ``cell`` on the extended grid ``dims``, ``valid`` where a row takes
+    part: :func:`pad_rows`, then the single-device frame's kernels
+    (``models/nbody.blocks_frame``) less A, whose cells are the cubic
+    grid's: the stable sort, B and C (``frame_kernels.sort_and_prepare``,
+    with no chunk counters) and the pair kernel.  Returns (the
+    ``Prepared`` inputs, acc_s, gmax_s), in sorted order."""
+    rows, cell, valid = pad_rows(rows, cell, valid)
+    num_cells = dims[0] * dims[1] * dims[2]
+    key = torch.where(valid, cell.to(torch.int32), num_cells)
+    p = sort_and_prepare(key, rows, cfg, nbk.C_MAX, nbk.CH, nbk.B, dims=dims)
+    acc_s, gmax_s = nbk.kernel_call(cfg, p.snap, p.chunks)
+    return p, acc_s, gmax_s
+
+
+def blocks_lifecycle(state: ParticleState, rows: Fields, cell, valid, dims,
+                     uvec, fert, frame, cfg: NBodyConfig) -> torch.Tensor:
+    """A rank's blocks frame on its halo-extended rows, whose first
+    ``state.slots`` are the rank's own slots in slot order (the halo rows
+    follow): :func:`extended_pass`, then D on the rank's slots (the
+    pass's outputs read through the first ``state.slots`` entries of
+    ``inv``) and E under the rank's budget ``min(max_spawns_per_frame,
+    state.slots)``, both writing ``state`` in place.  Returns the
+    statistics buffer (``frame_kernels.STATS``): D's and E's counts, C's
+    largest cell and dropped chunks; ``max_chunk_occupancy`` stays 0."""
+    p, acc_s, gmax_s = extended_pass(rows, cell, valid, dims, cfg)
+    flags, tiles = fk.nbody_lifecycle(state, state, acc_s, gmax_s,
+                                      p.overflow_s, p.inv, uvec, cfg, p.stats)
+    fk.nbody_spawn(state, fert, frame, flags, tiles, cfg, p.stats)
+    return p.stats
+
+
 def make_step(cfg: NBodyConfig, spec, mesh):
     """The per-rank frame of a decomposition ``spec`` (derived) over
     ``mesh`` (:class:`..mesh.RankMesh` of ``spec.mesh_shape``): returns
     ``step(state, frame) -> (state, stats)`` on this rank's local slots.
-    ``stats`` are 0-dim int64 tensors on the state's device, summed or
-    maximised over the whole mesh."""
+    ``stats`` ({name: 0-dim int64 tensor on the state's device}, the names
+    of :data:`STATS`) are summed or maximised over the whole mesh.
+    ``frame`` is a Python int or a 0-dim int64 tensor on the state's
+    device.  The blocks frame writes ``state`` in place
+    (:func:`blocks_lifecycle`) and returns it, unless particles migrate
+    (a split axis of several ranks), which builds the next state anew; the
+    dense frame always does."""
     splits = spec.splits()
     if mesh.shape != tuple(s.count for s in splits):
         raise ValueError(f"mesh of shape {mesh.shape} for a decomposition "
@@ -236,6 +317,7 @@ def make_step(cfg: NBodyConfig, spec, mesh):
     ext = {col: p[col] + 2 if col in p else gd for col in (0, 1, 2)}
     dims = (ext[0], ext[1], ext[2])
     num_ext = ext[0] * ext[1] * ext[2]
+    migrates = any(s.count > 1 for s in splits)
 
     def step(state: ParticleState, frame: int):
         dev = state.device
@@ -273,39 +355,26 @@ def make_step(cfg: NBodyConfig, spec, mesh):
         pos0, age0, w0, ids0, tags0, valid0 = ext_rows
 
         # ---- extended-grid binning -------------------------------------
-        lp = {}
-        for col in (0, 1, 2):
-            c = ext_coords[:, col]
-            lp[col] = (torch.clamp(c - (base[col] - 1), 0, p[col] + 1)
-                       if col in p else c)
-        ext_cell = lp[2] * (ext[0] * ext[1]) + lp[0] * ext[1] + lp[1]
+        ext_cell = extended_cell(ext_coords, base, p, dims)
 
         if spec.impl == "blocks":
-            pad = (-pos0.shape[0]) % NB_B
-            if pad:
-                padf = lambda a, v: torch.cat(
-                    [a, torch.full((pad,) + a.shape[1:], v, dtype=a.dtype,
-                                   device=dev)])
-                pos0, age0, w0 = padf(pos0, 0.0), padf(age0, 0.0), \
-                    padf(w0, 0.0)
-                ids0, tags0 = padf(ids0, -1), padf(tags0, 0)
-                ext_cell, valid0 = padf(ext_cell, 0), padf(valid0, False)
-            acc, kill, touch, ovf, max_cell, _, listed_dropped = \
-                neighbor_pass_blocks(pos0, age0, w0, ext_cell, valid0, cfg,
-                                     tags0, dims=dims, ids=ids0)
-            overflow_local = ovf[:c_local]
+            st = blocks_lifecycle(state, Fields(pos0, age0, w0, tags0, ids0),
+                                  ext_cell, valid0, dims, uvec, fert, frame,
+                                  cfg)
+            out = state
+            counts = {k: st[fk.STAT[k]] for k in COUNTS + ("n_alive",)}
+            max_cell = st[fk.STAT["max_cell_occupancy"]]
+            listed_dropped = st[fk.STAT["n_listed_dropped"]]
         else:
             bins = build_bins(ext_cell, valid0, num_ext, cfg.cell_capacity)
             acc, kill, touch = neighbor_pass(pos0, age0, w0, ids0,
                                              bins.cell_list, dims, cfg,
                                              okeys=collision_okey(tags0))
-            overflow_local = bins.overflow[:c_local]
             max_cell = bins.max_cell_occupancy
             listed_dropped = bins.n_listed_dropped
-
-        out, counts = lifecycle_update(
-            state, pos_w, overflow_local, acc[:c_local], kill[:c_local],
-            touch[:c_local], uvec, fert, frame, cfg)
+            out, counts = lifecycle_update(
+                state, pos_w, bins.overflow[:c_local], acc[:c_local],
+                kill[:c_local], touch[:c_local], uvec, fert, frame, cfg)
 
         # ---- migration: axis by axis, cyclic (the torus wrap) ----------
         mig_drop, mig_used = zero, zero
@@ -317,18 +386,17 @@ def make_step(cfg: NBodyConfig, spec, mesh):
             mig_used = torch.maximum(mig_used, used)
 
         # ---- statistics over the whole mesh: one sum, one max ----------
-        sum_keys = [k for k in counts if k != "n_alive"]
+        # (n_alive counts the migrated state where particles migrate)
+        n_alive = (out.alive.sum(dtype=torch.int64) if migrates
+                   else counts["n_alive"])
         sums = mesh.psum(torch.stack(
-            [counts[k] for k in sum_keys]
-            + [out.alive.sum(dtype=torch.int64), halo_drop,
-               listed_dropped.to(torch.int64), mig_drop]))
+            [counts[k] for k in COUNTS]
+            + [n_alive, halo_drop, listed_dropped.to(torch.int64),
+               mig_drop]))
         maxes = mesh.pmax(torch.stack(
             [halo_used, mig_used, max_cell.to(torch.int64)]))
-        stats = dict(zip(sum_keys + ["n_alive", "halo_dropped",
-                                     "n_listed_dropped", "migration_dropped"],
-                         sums.unbind()))
-        stats.update(zip(["halo_used_max", "migration_used_max",
-                          "max_cell_occupancy"], maxes.unbind()))
+        stats = dict(zip(SUM_STATS, sums.unbind()))
+        stats.update(zip(MAX_STATS, maxes.unbind()))
         return out, stats
 
     return step
@@ -346,8 +414,9 @@ def _shard_fn(cfg: NBodyConfig, mesh):
     rows = local_rows(cfg, mesh)
 
     def shard_state(state: ParticleState, device=None) -> ParticleState:
-        """This rank's slots of a global state, on ``device``."""
-        return state.map(lambda a: a[rows].to(device or a.device))
+        """This rank's slots of a global state, on ``device``, as tensors
+        of their own: the blocks step writes them in place."""
+        return state.map(lambda a: a[rows].to(device or a.device, copy=True))
     return shard_state
 
 

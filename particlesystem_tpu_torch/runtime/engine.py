@@ -98,11 +98,13 @@ class EngineState:
 
 class PackedEngine:
     """Frame loop over per-field SoA state on ``device`` (default: the
-    card; ``device="cpu"`` runs the plain versions)."""
+    card; ``device="cpu"`` runs the plain versions).  ``salt`` is folded
+    into the spawn keys of every frame :meth:`step` runs (a rank's index
+    in ``parallel/emitter_sharded``; 0 for one engine)."""
 
     def __init__(self, cfg: EmitterSceneConfig, refresh_interval: int = 1,
                  free_list_size: Optional[int] = None, alloc: str = "exact",
-                 layout: str = "packed8", device="cuda"):
+                 layout: str = "packed8", device="cuda", salt: int = 0):
         if alloc not in ("exact", "ring", "strided", "select"):
             raise ValueError(f"unknown alloc policy {alloc!r}")
         if layout not in ("packed8", "slim"):
@@ -116,6 +118,7 @@ class PackedEngine:
         self.layout = layout
         self.n_fields = 7 if layout == "slim" else 8
         self.refresh_interval = int(refresh_interval)
+        self.salt = int(salt)
         budget = cfg.max_spawn_per_step * self.refresh_interval
         self.free_list_size = int(free_list_size or max(1024, 4 * budget))
         # ring mode: shadow region sized to the (padded) spawn budget
@@ -267,9 +270,10 @@ class PackedEngine:
 
     def _static_frame(self, refresh: bool) -> None:
         """The frame the graphs capture: the static state to the next, in
-        place, and the device frame one on."""
+        place, and the device frame one on; the engine's salt is baked
+        in."""
         st = self._static
-        out = self._frame(st, frame=self._frame_t, refresh=refresh)
+        out = self._frame(st, self.salt, frame=self._frame_t, refresh=refresh)
         for dst, src in zip(st.tensors(), out.tensors(), strict=True):
             if src.data_ptr() != dst.data_ptr():
                 dst.copy_(src)

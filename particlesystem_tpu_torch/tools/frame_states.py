@@ -10,14 +10,18 @@ hold each kernel to its plain version on them.
   boundary, and a slot count that is not a multiple of the tile with
   every parent in the last tile and every free slot in the first;
   :func:`dims_case` the decomposed step's inputs to
-  ``prepare``: a non-cubic grid, explicit ids and -1-id padding rows.
+  ``prepare``: a non-cubic grid, explicit ids and -1-id padding rows;
+  :func:`slab_case` one rank's halo-extended rows of a slab (its own
+  slots, its neighbours' boundary planes, -1-id padding), on which D
+  reads a pass of more rows than it has slots.
 * :func:`hold_kernels` — on a card, A-E each against its plain version on
   the inputs one frame of a state gives it, bit for bit (every field,
   record, mask, tag, flag, tile count and statistic; A and C with records
   and without), D and E both into a fresh state and in place, E again
   after a call on other inputs, and D + E under two replays of one
   captured graph;
-  :func:`hold_prepare` B and C on ``prepare``'s inputs; :func:`hold_frames`
+  :func:`hold_prepare` B and C on ``prepare``'s inputs; :func:`hold_slab`
+  D and E on a :func:`slab_case`; :func:`hold_frames`
   whole frames of ``nbody.step`` against :func:`plain_frame`, the frame
   composed of the plain versions.
 
@@ -164,6 +168,63 @@ def edge_states(device, seed: int = 5) -> list:
         np.where(explode, 1.0, 30.0), rng.integers(0, 2 ** 32, slots), dev,
         vel=rng.uniform(-1, 1, (n, 3)), where=np.arange(t, slots)), 5, None))
     return out
+
+
+class SlabCase(NamedTuple):
+    """A rank's frame inputs in a slab: its own slots (``state``), its
+    halo-extended rows (``rows``, :class:`~..ops.frame_kernels.Fields` with
+    the global ids: its slots, then what its neighbours send), their cells
+    on the extended grid ``dims``, which rows take part, and the frame."""
+    cfg: NBodyConfig
+    state: ParticleState
+    rows: fk.Fields
+    cell: torch.Tensor
+    valid: torch.Tensor
+    dims: tuple
+    frame: object
+
+
+def slab_case(cfg: NBodyConfig, state: ParticleState, ranks: int,
+              rank: int, halo: int, frame) -> SlabCase:
+    """Rank ``rank`` of a slab of ``ranks`` over the global ``state``,
+    which is distributed as the driver distributes a fill
+    (``parallel/nbody_sharded.distribute``): its slots, then the alive rows
+    of the planes next to its slab as its neighbours pack them, ``halo``
+    rows a side (zeros past the count; none below the first rank or above
+    the last, the non-cyclic halo), binned on the extended grid as
+    ``nbody_sharded.make_step`` bins them.  A ``halo`` that leaves the row
+    count off the pair kernel's block pads the pass with -1-id rows."""
+    from ..ops.grid import cell_coords, wrap_positions
+    from ..parallel import nbody_sharded as ns
+    spec = ns.SlabSpec(ranks, halo_capacity=halo)
+    glob, dropped = ns.distribute(state, cfg, spec)
+    if dropped:
+        raise ValueError(f"{dropped} particles do not fit their rank")
+    g, c = cfg.grid, cfg.slots // ranks
+    p = g.grid_dim // ranks
+
+    def rank_rows(d):
+        st = glob.map(lambda a: a[d * c:(d + 1) * c].clone())
+        pos_w, coords = wrap_positions(st.pos, g)
+        ids = torch.arange(d * c, (d + 1) * c, dtype=torch.int32,
+                           device=st.device)
+        return st, [pos_w, st.age, st.w, ids, st.tag], coords
+
+    own, parts, coords = rank_rows(rank)
+    valid = [own.alive]
+    # from below: the top plane of rank - 1; from above: rank + 1's bottom
+    for d, plane in ((rank - 1, rank * p - 1), (rank + 1, (rank + 1) * p)):
+        st, rows, cc = rank_rows(min(max(d, 0), ranks - 1))
+        send = st.alive & (cc[:, 2] == plane) & (0 <= d < ranks)
+        packed = ns._pack_rows(send, halo, *rows)
+        parts = [torch.cat([a, b]) for a, b in zip(parts, packed[:5])]
+        valid.append(packed[5])
+        coords = torch.cat([coords, cell_coords(packed[0], g)])
+    dims = (g.grid_dim, g.grid_dim, p + 2)
+    cell = ns.extended_cell(coords, {2: rank * p}, {2: p}, dims)
+    pos, age, w, ids, tags = parts
+    return SlabCase(cfg, own, fk.Fields(pos, age, w, tags, ids), cell,
+                    torch.cat(valid), dims, frame)
 
 
 def dims_case(device, seed: int = 6):
@@ -347,6 +408,45 @@ def hold_prepare(cfg: NBodyConfig, args, dims=None, ids=None,
     _, sk, _ = _hold_c(cfg, rec, fk.Fields(pos, age, w, tags, ids), skey,
                        order, starts, c_max, 0, dims=dims)
     return stats_dict(sk)
+
+
+def hold_slab(case: SlabCase) -> dict:
+    """D and E on a rank's halo-extended pass (:func:`slab_case`: more
+    rows than slots) against their plain versions on the same inputs, bit
+    for bit, D into a fresh state and both in place; the sort, B, C and the
+    pair kernel run once (``parallel/nbody_sharded.extended_pass``), and
+    ``nbody_sharded.blocks_lifecycle`` gives the in-place result too.
+    Returns (the pass's rows, the rank's slots, the statistics)."""
+    from ..parallel import nbody_sharded as ns
+    cfg, st = case.cfg, case.state
+    uvec, fert = nbody.frame_fields(cfg, case.frame, st.tag)
+    p, acc_s, gmax_s = ns.extended_pass(case.rows, case.cell, case.valid,
+                                        case.dims, cfg)
+    if not acc_s.shape[1] > st.slots:
+        raise ValueError("the pass has no more rows than the rank's slots")
+    d_args = (acc_s, gmax_s, p.overflow_s, p.inv, uvec, cfg)
+    outs = []
+    for lifecycle, spawn in ((fk.nbody_lifecycle_cuda, fk.nbody_spawn_cuda),
+                             (fk.nbody_lifecycle_plain, fk.nbody_spawn_plain)):
+        stats = p.stats.clone()
+        out = st.map(torch.empty_like)
+        flags, tiles = lifecycle(st, out, *d_args, stats)
+        d_out, d_stats = out.map(lambda a: a.clone()), stats.clone()
+        spawn(out, fert, case.frame, flags, tiles, cfg, stats)
+        outs.append((d_out, d_stats, flags, tiles, out, stats))
+    (dk, sdk, fl_k, ti_k, ek, sek), (dp, sdp, fl_p, ti_p, ep, sep) = outs
+    _same_state(dk, dp, "D on a slab pass")
+    _same(sdk, sdp, "D on a slab pass: stats")
+    _same(fl_k, fl_p, "D on a slab pass: flags")
+    _same(ti_k, ti_p, "D on a slab pass: tiles")
+    _same_state(ek, ep, "D and E on a slab pass")
+    _same(sek, sep, "D and E on a slab pass: stats")
+    inplace = st.map(lambda a: a.clone())
+    stats = ns.blocks_lifecycle(inplace, case.rows, case.cell, case.valid,
+                                case.dims, uvec, fert, case.frame, cfg)
+    _same_state(inplace, ek, "blocks_lifecycle in place")
+    _same(stats, sek, "blocks_lifecycle in place: stats")
+    return dict(rows=acc_s.shape[1], slots=st.slots, **stats_dict(sek))
 
 
 def plain_frame(state: ParticleState, out: ParticleState, uvec, fert,

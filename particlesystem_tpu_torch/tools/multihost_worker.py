@@ -80,7 +80,9 @@ def _count_gathers(sim) -> dict:
 
 
 def _local_numpy(sim) -> list:
-    return [getattr(sim.state, f).cpu().numpy() for f in FIELDS]
+    """A copy of this rank's state: the driver's loop writes it in
+    place."""
+    return [getattr(sim.state, f).cpu().numpy().copy() for f in FIELDS]
 
 
 def run_decomp(name: str, group, device, scratch: str) -> None:

@@ -134,7 +134,7 @@ def load_library() -> ctypes.CDLL:
         _P] * 7
     fn.restype = ctypes.c_int
     fn = lib.ps_nbody_lifecycle
-    fn.argtypes = [_P] * 8 + [n, _P, i, i, _P, _P, _P, _P]
+    fn.argtypes = [_P] * 4 + [n] + [_P] * 4 + [n, _P, i, i, _P, _P, _P, _P]
     fn.restype = ctypes.c_int
     fn = lib.ps_nbody_spawn
     fn.argtypes = [_P] * 7 + [n, i, f, _P, _P, _P]

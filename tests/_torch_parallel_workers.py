@@ -43,18 +43,18 @@ def ppermute_job(rank, group):
 
 
 def _check_ids(c_local_of):
-    """Wrap the slab module's neighbor pass so that each call checks that
-    the pass's ids are unique among the valid rows and that no halo row
+    """Wrap the slab module's sort and prepare (the blocks pass's first
+    step) so that each call checks that the pass's ids are unique among
+    the valid rows (those whose sort key is a cell) and that no halo row
     carries a local row's id (the kernel compares ids only without
     softening and otherwise relies on the self pair alone sharing one)."""
-    inner = nbody_sharded.neighbor_pass_blocks
+    inner = nbody_sharded.sort_and_prepare
     seen = {"calls": 0, "padded": 0}
 
-    def checked(pos0, age0, w0, cell, alive, cfg, tags, dims=None,
-                ids=None):
+    def checked(key, rows, cfg, c_max, ch, b, grid=None, dims=None):
         c_local = c_local_of()
-        valid = alive.numpy()
-        gid = ids.numpy()
+        valid = (key < dims[0] * dims[1] * dims[2]).numpy()
+        gid = rows.ids.numpy()
         assert len(np.unique(gid[valid])) == valid.sum(), "duplicate ids"
         local = set(gid[:c_local].tolist())
         halo = gid[c_local:][valid[c_local:]]
@@ -62,10 +62,9 @@ def _check_ids(c_local_of):
         assert not valid[gid == -1].any(), "a padding row is valid"
         seen["calls"] += 1
         seen["padded"] += int((gid == -1).sum())
-        return inner(pos0, age0, w0, cell, alive, cfg, tags, dims=dims,
-                     ids=ids)
+        return inner(key, rows, cfg, c_max, ch, b, grid=grid, dims=dims)
 
-    nbody_sharded.neighbor_pass_blocks = checked
+    nbody_sharded.sort_and_prepare = checked
     return seen, inner
 
 
@@ -73,7 +72,8 @@ def nbody_job(rank, group, cfg, spec, frames, full_state=False,
               check_ids=False):
     """Frames of the decomposed run, one ``run(1, batch=1)`` each: per
     frame the statistics and the gathered global state (whole, or the
-    alive rows and tags)."""
+    alive rows and tags); beside them, whether the driver ran its frames
+    through frame graphs."""
     sim = None
     if check_ids:
         seen, inner = _check_ids(lambda: sim.cfg.slots // sim.mesh.size)
@@ -93,8 +93,8 @@ def nbody_job(rank, group, cfg, spec, frames, full_state=False,
             out.append((stats, st))
     finally:
         if check_ids:
-            nbody_sharded.neighbor_pass_blocks = inner
-    extra = seen if check_ids else {}
+            nbody_sharded.sort_and_prepare = inner
+    extra = dict(seen if check_ids else {}, graphed=sim.graphs is not None)
     return (out, extra) if rank == 0 else None
 
 
@@ -171,5 +171,35 @@ def emitter_job(rank, group, cfg, alloc, layout, frames, jax_npz, out_dir):
                 resumed=same)
 
 
+def emitter_steps_job(rank, group, cfg, alloc, layout, frames):
+    """The sharded emitter's ``step_many(frames)`` beside ``frames`` calls
+    of ``step()`` (another engine) and the eager frames ``_frame(s,
+    index)`` of this rank: whether each is bit for bit the first, the
+    engine's salt, and the leaves of ``step_many``."""
+    mesh = meshmod.mesh_1d(group.size(), "x", group)
+
+    def engine():
+        return ShardedEmitterEngine(cfg, mesh, alloc=alloc, layout=layout,
+                                    device="cpu")
+
+    a, b = engine(), engine()
+    many = engine_state_to_numpy(a.step_many(a.init(), frames))
+    s = b.init()
+    for _ in range(frames):
+        s = b.step(s)
+    one = engine_state_to_numpy(s)
+    s = b.init()
+    for _ in range(frames):
+        s = b.local._frame(s, b.index)
+    eager = engine_state_to_numpy(s)
+
+    def same(x, y):
+        return all(np.array_equal(p, q) for p, q in zip(x, y, strict=True))
+
+    return dict(steps=same(many, one), eager=same(many, eager),
+                salt=a.local.salt, leaves=many)
+
+
 JOBS = dict(ppermute=ppermute_job, nbody=nbody_job, one_rank=one_rank_job,
-            checkpoint=checkpoint_job, emitter=emitter_job)
+            checkpoint=checkpoint_job, emitter=emitter_job,
+            emitter_steps=emitter_steps_job)

@@ -21,7 +21,8 @@ with Pallas in interpret mode.  Rules, each with its source:
   rows within 1e-3, no halo or migration drop;
 * the sharded emitter against the JAX ``ShardedEmitterEngine`` on 2
   devices: bookkeeping and alive masks exact, fields within 1e-4
-  (tests/test_torch_emitter.py).
+  (tests/test_torch_emitter.py); its ``step_many`` (the engine's frame
+  loop) bit for bit ``step()`` and the eager frames on both ranks.
 """
 
 import concurrent.futures
@@ -106,6 +107,7 @@ ONE_RANK_JOBS = {run: (on, f"one_rank:{run}") for on, run in
                  enumerate(("slab-dense", "slab-blocks", "brick-blocks"), 1)}
 EMITTER_RUNS = (("ring", "packed8"), ("select", "slim"))
 EMITTER_FRAMES = 25
+EMITTER_STEP_FRAMES = 12
 
 
 def emitter_scene(m):
@@ -250,6 +252,9 @@ def world2_jobs(d):
             frames=EMITTER_FRAMES,
             jax_npz=str(d / f"jax_emitter_{alloc}_{layout}.npz"),
             out_dir=str(d / f"port_emitter_{alloc}_{layout}"))))
+        jobs.append((f"emitter_steps:{alloc}-{layout}", dict(
+            cfg=emitter_scene(tconfig), alloc=alloc, layout=layout,
+            frames=EMITTER_STEP_FRAMES)))
     return jobs
 
 
@@ -568,6 +573,15 @@ def test_decomposition_matches_single_device_jax(name, world2, world8):
         assert extra["padded"] > 0
 
 
+def test_gloo_ranks_run_eagerly(world2, world8):
+    """Gloo stages its collectives through host memory, which a CUDA
+    graph cannot hold: the driver over gloo ranks takes no frame graphs."""
+    runs = [world8[0][f"nbody:slab8-{impl}"] for impl in ("dense", "blocks")]
+    runs += [(world2 if ws == 2 else world8)[0][f"nbody:{name}"]
+             for name, (ws, *_) in RUNS.items()]
+    assert all(extra["graphed"] is False for _, extra in runs)
+
+
 # --- sharded checkpoints both ways -------------------------------------------
 
 
@@ -662,3 +676,18 @@ def test_cli_nbody_slab_one_device_on_cpu(tmp_path):
         TNBodyConfig(n_fill=3000, grid=TGridSpec(grid_dim=16)),
         SlabSpec(1, impl="blocks"), device="cpu")
     assert sim.load(path) == 0 and sim.frame == 2
+
+
+@pytest.mark.parametrize("alloc,layout", EMITTER_RUNS)
+def test_sharded_emitter_step_many_is_step(alloc, layout, world2):
+    """``step_many(k)`` (the engine's frame loop, graph replays on a card)
+    is bit for bit ``k`` calls of ``step()`` and the eager frames salted
+    with the rank's index, on both ranks; the salts differ, and so do the
+    ranks' streams."""
+    rs = [world2[rank][f"emitter_steps:{alloc}-{layout}"]
+          for rank in range(2)]
+    for rank, r in enumerate(rs):
+        assert r["salt"] == rank
+        assert r["steps"] and r["eager"], (rank, r["steps"], r["eager"])
+    assert not all(np.array_equal(a, b) for a, b in
+                   zip(rs[0]["leaves"], rs[1]["leaves"]))
