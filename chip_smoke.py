@@ -54,14 +54,16 @@ Phases (any failure raises and exits non-zero):
    (no drag, two planes, two spheres);
 6. 25 frames of the emitter engine on the card against the CPU for every
    (alloc, layout) pair at 16,384 slots: bookkeeping and alive masks exact,
-   fields within 1e-4;
+   fields within 1e-4, the emitter frame's kernels launched once a frame;
 7. the emitter main path: ``ParticleSystem`` at 10,485,760 slots for
    ``step(60)`` twice, then ``PackedEngine`` from an all-alive state at
    1,048,576 and 10,485,760 slots (select/packed8, ring/packed8,
    select/slim): ms/frame over ``step_many(64)`` and ``step_many(512)``,
-   particle-steps/s, launches, peak memory, kernels per frame from
-   ``torch.profiler``; then each kernel variant vs the plain version timed
-   at both sizes (plain, kernel, kernel, plain) beside its bound;
+   particle-steps/s, launches (the spawn, physics and tail kernels once a
+   frame, the ring kernel on ring), peak memory, kernels and copies/sets
+   a frame from ``torch.profiler``; then each physics-kernel variant vs
+   the plain version timed at both sizes (plain, kernel, kernel, plain)
+   beside its bound;
 8. the probe kernels vs their plain versions on the card: every variant of
    ``probe_alu_ops`` at ``k = 8`` on the (512, 1024) tile (bit for bit;
    ``rsqrt`` within 2e-6 relative) and ``probe_affine`` at widths 512, 768,
@@ -149,9 +151,10 @@ Phases (any failure raises and exits non-zero):
     at ``NBodyConfig()`` full width, ``run`` in batches of 10, 2 and 8
     frames (the full-width key, then the prefix's) against 20 frames of
     ``models/nbody.step`` on the same prefixes, and ``PackedEngine``
-    select/packed8 at 10,485,760 slots, ``step_many(64)`` and ``(56)``
-    against 120 frames of its eager ``_frame``: every field, mask and
-    stat bit-identical; the dense pass's loop (its keys changing with the
+    select/packed8, select/slim and ring/packed8 at 10,485,760 slots,
+    ``step_many(64)`` and ``(56)`` (the emitter frame's kernels) against
+    120 frames of its eager ``_frame`` (the plain versions around the
+    physics kernel): every field, mask and stat bit-identical; the dense pass's loop (its keys changing with the
     list width) against the same loop on the CPU at phase 3's config;
     eager frames + replays = frames, each kernel
     recorded once a graph; ms a frame of both loops, the host's
@@ -179,17 +182,31 @@ Phases (any failure raises and exits non-zero):
     data) and, for B, ``torch.searchsorted``, E beside one empty kernel in
     a graph, then A + C of each route against their summed bound; E at
     10M split by launch from a trace; a trace of the 10M stage's replayed
-    frames, its largest kernels.
+    frames, its largest kernels;
+16. the emitter frame's kernels (``csrc/emitter_frame.cu``, through
+    ``ops/engine_kernels.py``) against their plain versions on the card,
+    bit for bit: the spawn window (rows, valid, the next accum; slim's
+    death frame) on the bench scene at 1M and 10M slots, the entry scene,
+    three emitters and none, packed8 and slim, frames 0, 1 and 2^31 - 1,
+    salts 0 and 3; the ring write at three cursors (one wrapping) with
+    none, some and all rows valid; the tail; then 120 frames of graph
+    replays of select/packed8, select/slim, strided/packed8 and
+    ring/packed8 at 1M slots and ring/packed8 at 65,536 (wrapping)
+    against 120 eager plain frames, bit for bit; each kernel timed through
+    its wrapper, in a CUDA graph and with the L2 cleared, beside its plain
+    version, its bound and one empty kernel in a graph.
 
 The frame loops (``NBodySimulation.run``,
 ``PackedEngine.step``/``step_many``, and ``ParticleSystem``, ``bench`` and
 ``entry()`` through them; ``DistributedNBodySimulation.run`` on a mesh of
 one rank; ``ShardedEmitterEngine.step``/``step_many`` on every rank)
-replay one CUDA graph a frame after a key's eager first frame.  Every path that draws random fields on the card goes
-through the threefry kernel: its launches are read beside the other
-kernels' in phases 4, 6, 7, 9, 10, 11, 12 and 14 (once a frame, once an
-``init_fill``; a replay counts the launches its graph recorded), and
-phase 6 also holds the spawn draws on the card against those on the
+replay one CUDA graph a frame after a key's eager first frame.  The
+n-body paths draw their random fields through the threefry kernel (once
+a frame, once an ``init_fill``), the emitter engine's frame through its
+spawn kernel, which hashes what each row uses itself; the launches are
+read beside the other kernels' in phases 4, 6, 7, 9, 10, 11, 12 and 14
+(a replay counts the launches its graph recorded), and phase 6 also
+holds the threefry kernel's spawn draws on the card against those on the
 CPU.  Every single-device n-body frame on the card runs A-E once (phases
 4, 9, 12 and 14 read their launches), every decomposed blocks frame B-E
 (phases 11 and 12); ``prepare`` runs B and C, C on the arrays it is
@@ -233,6 +250,10 @@ TRAJ_TOL = 1e-4                    # tests/test_pallas_step.py:94
 # 80GB HBM3, 700 W)
 NBODY_KERNELS_BEFORE = 1179
 ENGINE_KERNELS_BEFORE = 415.8
+# kernels and copies/sets a replayed engine frame (select/packed8) ran
+# before the emitter frame's kernels, the spawn rows eager torch operations
+# around the threefry kernel (phase 7's and 14's traces, the same card)
+ENGINE_REPLAY_BEFORE = (47.0, 2.0)
 # kernels and copies a frame of the n-body in a trace of replays, and in
 # an eager frame's trace, before the frame kernels A-E (the same card)
 NBODY_REPLAY_KERNELS_BEFORE = 469.9
@@ -288,6 +309,7 @@ def roofline_ms(n_bytes: float, flops: float):
 
 def _wrappers():
     """{kernel name: the wrapper that counts its launches}."""
+    from particlesystem_tpu_torch.ops import engine_kernels as ek
     from particlesystem_tpu_torch.ops import frame_kernels as fk
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
     from particlesystem_tpu_torch.ops import physics_kernel as pk
@@ -303,7 +325,10 @@ def _wrappers():
                 cell_starts=fk.cell_starts_cuda,
                 block_prepare=fk.block_prepare_cuda,
                 nbody_lifecycle=fk.nbody_lifecycle_cuda,
-                nbody_spawn=fk.nbody_spawn_cuda)
+                nbody_spawn=fk.nbody_spawn_cuda,
+                emitter_spawn=ek.spawn_window_cuda,
+                emitter_ring=ek.ring_write_cuda,
+                emitter_tail=ek.frame_tail_cuda)
 
 
 def reset_launches():
@@ -318,6 +343,17 @@ def nbody_frames(frames: int, **others) -> dict:
                **{k: frames for k in FRAME_KERNELS})
     for k, v in others.items():
         out[k] = out.get(k, 0) + v
+    return out
+
+
+def engine_frames(alloc: str, frames: int) -> dict:
+    """The launches of ``frames`` frames of ``PackedEngine.step`` (graph
+    replays and each key's eager first frame): the spawn, physics and
+    tail kernels once a frame, and the ring kernel for ``alloc="ring"``."""
+    out = dict(emitter_spawn=frames, physics_step=frames,
+               emitter_tail=frames)
+    if alloc == "ring":
+        out["emitter_ring"] = frames
     return out
 
 
@@ -1017,12 +1053,13 @@ def phase_engine_card_vs_cpu(dev):
                 assert (err <= TRAJ_TOL + TRAJ_TOL * np.abs(y)).all(), \
                     f"{alloc}/{layout} frame {frame} field {i}: {err.max()}"
                 worst = max(worst, float(err.max()))
-        launches(physics_step=25, threefry_flat=25)
+        counts = launches(**engine_frames(alloc, 25))
         n_alive = int(card.alive_count(sc))
         assert n_alive == int(host.alive_count(sh)) > 0
         print(f"phase 6: {alloc}/{layout} refresh {refresh}: 25 frames card "
               f"== cpu (bookkeeping and alive exact, {n_alive} alive, 25 "
-              f"launches of each kernel)")
+              f"launches of each kernel: "
+              f"{', '.join(k for k, v in counts.items() if v)})")
     print(f"phase 6: largest field difference {worst:.3e} (limit "
           f"{TRAJ_TOL} + {TRAJ_TOL} * |cpu|)")
     # the spawn rows' random draws: the kernel on the card, the plain
@@ -1120,18 +1157,21 @@ def phase_emitter_main_path(dev):
     ps.step(60)
     end.record()
     torch.cuda.synchronize()
-    counts = launches(physics_step=120, threefry_flat=120)
-    counts_main = counts["threefry_flat"]
+    counts = launches(**engine_frames("select", 120))
+    main_counts = dict(counts)
     n_alive = check_emitter_state(ps._engine, ps._es, "ParticleSystem")
     assert n_alive == ps.alive_count() > 0
     print(f"phase 7: ParticleSystem {EMIT_SLOTS} slots, select/packed8: "
           f"frames 1-60 {first_s:.3f} s (first call); frames 61-120 "
           f"{start.elapsed_time(end) / 60:.4f} ms/frame; alive {n_alive}; "
-          f"kernel launches {counts['physics_step']} (physics), "
-          f"{counts['threefry_flat']} (threefry); peak memory "
+          f"kernel launches {counts['emitter_spawn']} (spawn), "
+          f"{counts['physics_step']} (physics), {counts['emitter_tail']} "
+          f"(tail), {counts['threefry_flat']} (threefry); peak memory "
           f"{torch.cuda.max_memory_allocated()} bytes")
 
-    # bench.py:80-119: the engine from an all-alive state
+    # bench.py:80-119: the engine from an all-alive state; the ring
+    # kernel's path is ring's runs
+    ring_launches = 0
     for n in ENGINE_SLOTS:
         cfg = bench_scene(n)
         init = full_packed(n, 24)
@@ -1150,7 +1190,8 @@ def phase_emitter_main_path(dev):
                 torch.cuda.synchronize()
                 ms[k] = start.elapsed_time(end) / k
                 frames += k
-            counts = launches(physics_step=frames, threefry_flat=frames)
+            counts = launches(**engine_frames(alloc, frames))
+            ring_launches += counts["emitter_ring"]
             n_alive = check_emitter_state(eng, es, f"{n} {alloc}/{layout}")
             assert n_alive == int(eng.alive_count(es)) > 0
             short, long_ = STEP_MANY
@@ -1158,16 +1199,19 @@ def phase_emitter_main_path(dev):
                     f"{ms[short]:.4f} ms/frame over {short} frames, "
                     f"{ms[long_]:.4f} over {long_}; "
                     f"{n / ms[long_] * 1e3:.4e} particle-steps/s; "
-                    f"launches {counts['physics_step']} (physics), "
-                    f"{counts['threefry_flat']} (threefry) "
+                    f"launches {counts['emitter_spawn']} (spawn), "
+                    f"{counts['physics_step']} (physics), "
+                    f"{counts['emitter_ring']} (ring), "
+                    f"{counts['emitter_tail']} (tail) "
                     f"for {frames} frames; alive {n_alive}; peak memory "
                     f"{torch.cuda.max_memory_allocated()} bytes")
-            if (alloc, layout) == ENGINE_RUNS[0]:
-                es, kernels, moves, busy = profile_frames(eng, es, 8)
-                line += (f"; profiler: {kernels:.1f} kernels and {moves:.1f} "
-                         f"copies/sets a frame ({ENGINE_KERNELS_BEFORE} "
-                         f"kernels before the threefry kernel), device "
-                         f"busy {busy:.1%}")
+            es, kernels, moves, busy = profile_frames(eng, es, 8)
+            line += (f"; profiler: {kernels:.1f} kernels and {moves:.1f} "
+                     f"copies/sets a frame (select/packed8 before the "
+                     f"emitter frame's kernels: {ENGINE_REPLAY_BEFORE[0]} "
+                     f"and {ENGINE_REPLAY_BEFORE[1]}; "
+                     f"{ENGINE_KERNELS_BEFORE} before the threefry "
+                     f"kernel), device busy {busy:.1%}")
             print(line)
             del es, eng
 
@@ -1206,7 +1250,11 @@ def phase_emitter_main_path(dev):
                       f"{t_bound / min(k1, k2):.1%} of it by launches, "
                       f"{t_bound / dev_ms:.1%} in the graph")
     main = timings[(EMIT_SLOTS, "packed8 + window")]
-    return dict(launches=120, rng_launches=counts_main, **main)
+    return dict(launches=120, rng_launches=main_counts["threefry_flat"],
+                emitter_launches=dict(
+                    emitter_spawn=main_counts["emitter_spawn"],
+                    emitter_tail=main_counts["emitter_tail"],
+                    emitter_ring=ring_launches), **main)
 
 
 # ---------------------------------------------------------------------------
@@ -1606,7 +1654,7 @@ def phase_readback(dev):
         assert torch.equal(torch.from_numpy(got).to(dev), kept.pop(i - 1)), \
             f"popped frame {i - 1} differs from packed()"
         checked += 1
-    launches(physics_step=n, threefry_flat=n)
+    launches(**engine_frames("select", n))
     assert (rb.published, rb.dropped) == (n - 1, 0), \
         (rb.published, rb.dropped)
     rb.flush()
@@ -1913,21 +1961,21 @@ def rank_nbody(rank, group, cfg, spec, frames, timed, device):
 def rank_emitter(rank, group, cfg, frames, device):
     """One rank of the data-parallel emitter: its leaves after ``frames``
     frames of ``step_many`` (graph replays on a card), its engine's
-    physics and threefry launches, the psum'd alive count and its
+    physics and spawn-kernel launches, the psum'd alive count and its
     engine's (eager frames, captures, replays)."""
     import torch
+    from particlesystem_tpu_torch.ops import engine_kernels as ek
     from particlesystem_tpu_torch.ops import physics_kernel as pk
-    from particlesystem_tpu_torch.ops import rng_kernel as rk
     from particlesystem_tpu_torch.parallel import ShardedEmitterEngine, mesh
     from particlesystem_tpu_torch.runtime.engine import engine_state_to_numpy
-    pk.physics_step_cuda.launches = rk.flat_fields_cuda.launches = 0
+    pk.physics_step_cuda.launches = ek.spawn_window_cuda.launches = 0
     eng = ShardedEmitterEngine(cfg, mesh.mesh_1d(group.size(), "x", group),
                                alloc="select", layout="packed8",
                                device=torch.device(device))
     es = eng.step_many(eng.init(), frames)
     g = eng.local.graphs
     return (engine_state_to_numpy(es), (pk.physics_step_cuda.launches,
-                                        rk.flat_fields_cuda.launches),
+                                        ek.spawn_window_cuda.launches),
             eng.alive_count(es), (g.eager_frames, g.captures, g.replays))
 
 
@@ -2245,9 +2293,10 @@ def phase_sharded_emitter(dev, slots=EMIT_SLOTS, dp_slots=DP_SLOTS):
     sharded = ShardedEmitterEngine(cfg, mesh_1d(1), alloc="select",
                                    layout="packed8", device=dev)
     es = sharded.step_many(sharded.init(), DP_FRAMES)
-    n_launch, n_rng = (launches()[k] for k in ("physics_step",
-                                               "threefry_flat"))
     on_card = dev.type == "cuda"
+    launches(**engine_frames("select", DP_FRAMES if on_card else 0))
+    n_launch, n_rng = (launches()[k] for k in ("physics_step",
+                                               "emitter_spawn"))
     g = sharded.local.graphs
     runs = (g.eager_frames, g.captures, g.replays)
     assert runs == ((1, 1, DP_FRAMES - 1) if on_card
@@ -2272,7 +2321,7 @@ def phase_sharded_emitter(dev, slots=EMIT_SLOTS, dp_slots=DP_SLOTS):
           f"frame(s), {runs[1]} capture(s) and {runs[2]} replays: bit for "
           f"bit PackedEngine and its eager frames (fields and "
           f"bookkeeping), alive {alive}, physics launches {n_launch}, "
-          f"threefry launches {n_rng}")
+          f"spawn and tail launches {n_rng}")
     del sharded, es, plain, ps, a, b
 
     cfg = bench_scene(dp_slots)
@@ -2304,7 +2353,7 @@ def phase_sharded_emitter(dev, slots=EMIT_SLOTS, dp_slots=DP_SLOTS):
           f"(eager frames, captures, replays {ranks[0][3]}) bit for bit "
           f"the eager frames of a local engine salted with its index, "
           f"alive {total} (psum), "
-          f"{ranks[0][1]} physics and threefry launches a rank; "
+          f"{ranks[0][1]} physics and spawn launches a rank; "
           f"{wall:.1f} s with the "
           f"spawn")
 
@@ -2420,11 +2469,14 @@ def phase_bench(dev, cut=None):
                  if name.startswith("cap"))
     if dev.type == "cuda":
         assert all(v is not None for v in res.values()), res
-        # the threefry kernel: once a pass and a frame, once an init_fill
+        # the threefry kernel: once a pass, once an init_fill; the
+        # emitter frame's spawn, physics and tail kernels once a frame
         assert (counts["cluster_pair"], counts["threefry_nbody"],
-                counts["physics_step"], counts["threefry_flat"]) == (
-            passes, passes, frames, frames + nbody_stages), (
-                counts, passes, frames)
+                counts["threefry_flat"]) == (passes, passes, nbody_stages), (
+                    counts, passes)
+        assert [counts[k] for k in ("emitter_spawn", "physics_step",
+                                    "emitter_tail", "emitter_ring")] == [
+            frames, frames, frames, 0], (counts, frames)
         # A once a single-device frame; B-E once a pass of either path
         # (the decomposed frame runs all but A)
         single = passes - sum(bench_passes(name, kw)
@@ -2469,12 +2521,12 @@ def phase_entry(dev):
         for a, b in zip(got[:nf], want[:nf]):
             np.testing.assert_allclose(a, b, rtol=TRAJ_TOL, atol=TRAJ_TOL)
             err = max(err, float(np.abs(a - b).max()))
-    n, n_rng = (launches()[k] for k in ("physics_step", "threefry_flat"))
-    assert n == n_rng == (2 if dev.type == "cuda" else 0), (n, n_rng)
+    launches(**engine_frames("select", 2 if dev.type == "cuda" else 0))
+    n, n_rng = (launches()[k] for k in ("physics_step", "emitter_spawn"))
     print(f"phase 12b: entry() 2 frames on {dev} == cpu (bookkeeping and "
           f"alive exact, fields within {TRAJ_TOL}: max abs err {err:.3e}), "
-          f"alive {int(alive[0].sum())}, physics launches {n}, threefry "
-          f"launches {n_rng}")
+          f"alive {int(alive[0].sum())}, physics launches {n}, spawn and "
+          f"tail launches {n_rng}")
     t0 = time.perf_counter()
     stats = dryrun_multichip(8, device=dev)
     print(f"phase 12b: dryrun_multichip(8) on {dev} over gloo "
@@ -3033,72 +3085,100 @@ def phase_graphs_dense(dev):
           f"replays")
 
 
+#: the engine loops of phase 14, each at 10,485,760 slots
+GRAPH_ENGINE_RUNS = (("select", "packed8"), ("select", "slim"),
+                     ("ring", "packed8"))
+#: the emitter frame's kernel functions, as a trace names them
+EMITTER_FRAME_FUNCTIONS = ("emitter_spawn", "physics_step_kernel",
+                           "emitter_tail")
+
+
 def phase_graphs_engine(dev):
-    """14 (emitter): ``PackedEngine`` select/packed8 at 10,485,760 slots
-    from an all-alive state, ``step_many(64)`` then ``(56)`` through the
-    frame graph against 120 eager frames (``PackedEngine._frame``) from
-    the same state: every tensor of the state bit-identical; ms a frame of
-    each, the host's microseconds a replay, kernels a frame in a trace of
-    replays and the busy share."""
+    """14 (emitter): ``PackedEngine`` at 10,485,760 slots from an
+    all-alive state, select/packed8, select/slim and ring/packed8:
+    ``step_many(64)`` then ``(56)`` through the frame graph (the emitter
+    frame's kernels) against 120 eager frames (``PackedEngine._frame``,
+    the plain versions around the physics kernel) from the same state:
+    every tensor of the state bit-identical; ms a frame of each, the
+    host's microseconds a replay, kernels and copies/sets a frame in a
+    trace of replays (each of the frame's kernels once a frame) and the
+    busy share.  Returns select/packed8's numbers."""
     import torch
     from particlesystem_tpu_torch.runtime.engine import PackedEngine
 
     cfg = bench_scene(EMIT_SLOTS)
     init = full_packed(EMIT_SLOTS, 27)
-    eng = PackedEngine(cfg, alloc="select", layout="packed8", device=dev)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    reset_launches()
-    es = eng.init(init)
-    ms = []
-    for k in GRAPH_ENGINE_STEPS:
-        start.record()
-        es = eng.step_many(es, k)
-        end.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(end) / k)
     frames = sum(GRAPH_ENGINE_STEPS)
-    counted = graph_launch_checks(eng.graphs, False, frames,
-                                  ("physics_step", "threefry_flat"))
-    reset_launches()
-    ref = eng.init(init)
-    eager_ms = []
-    for k in GRAPH_ENGINE_STEPS:
-        start.record()
-        for _ in range(k):
-            ref = eng._frame(ref)
-        end.record()
-        torch.cuda.synchronize()
-        eager_ms.append(start.elapsed_time(end) / k)
-    launches(physics_step=frames, threefry_flat=frames)
-    assert ref.frame == es.frame == frames
-    for i, (a, b) in enumerate(zip(es.tensors(), ref.tensors(), strict=True)):
-        assert torch.equal(a, b), f"engine: graph vs eager, tensor {i}"
-    n_alive = int(eng.alive_count(es))
-    del ref
+    out = {}
+    for alloc, layout in GRAPH_ENGINE_RUNS:
+        eng = PackedEngine(cfg, alloc=alloc, layout=layout, device=dev)
+        kernels = tuple(engine_frames(alloc, 1))
+        reset_launches()
+        es = eng.init(init)
+        ms = []
+        for k in GRAPH_ENGINE_STEPS:
+            start.record()
+            es = eng.step_many(es, k)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end) / k)
+        counted = graph_launch_checks(eng.graphs, False, frames, kernels)
+        reset_launches()
+        ref = eng.init(init)
+        eager_ms = []
+        for k in GRAPH_ENGINE_STEPS:
+            start.record()
+            for _ in range(k):
+                ref = eng._frame(ref)
+            end.record()
+            torch.cuda.synchronize()
+            eager_ms.append(start.elapsed_time(end) / k)
+        # the eager frame: the plain versions around the physics kernel
+        launches(physics_step=frames, threefry_flat=frames)
+        assert ref.frame == es.frame == frames
+        for i, (a, b) in enumerate(zip(es.tensors(), ref.tensors(),
+                                       strict=True)):
+            assert torch.equal(a, b), \
+                f"engine {alloc}/{layout}: graph vs eager, tensor {i}"
+        n_alive = int(eng.alive_count(es))
+        del ref
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    es = eng.step_many(es, GRAPH_ENGINE_STEPS[0])
-    host_us = (time.perf_counter() - t0) * 1e6 / GRAPH_ENGINE_STEPS[0]
-    torch.cuda.synchronize()
-    trace = trace_frames(lambda: eng.step_many(es, 1), GRAPH_TRACE_FRAMES)
-    print(f"phase 14: engine {EMIT_SLOTS} slots select/packed8: "
-          f"step_many({GRAPH_ENGINE_STEPS[0]}) and "
-          f"({GRAPH_ENGINE_STEPS[1]}) through the frame graph == {frames} "
-          f"eager frames: every tensor of the state bit-identical (alive "
-          f"{n_alive}); {counted}")
-    print(f"phase 14: engine ms a frame: graphs {ms[1]:.4f} over "
-          f"step_many({GRAPH_ENGINE_STEPS[1]}) ({ms[0]:.4f} over "
-          f"({GRAPH_ENGINE_STEPS[0]}), with the warm-up and capture), "
-          f"eager {eager_ms[1]:.4f} ({eager_ms[0]:.4f}); the host's "
-          f"microseconds a frame {host_us:.1f} a replay; a trace of "
-          f"{GRAPH_TRACE_FRAMES} replays: {trace['kernels']:.1f} kernels "
-          f"and {trace['moves']:.1f} copies/sets a frame, "
-          f"{trace['device_ms']:.4f} ms of device time in "
-          f"{trace['wall_ms']:.4f} ms a frame, device busy "
-          f"{trace['busy']:.1%}")
-    return dict(ms=ms[1], eager_ms=eager_ms[1], host_us=host_us, **trace)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es = eng.step_many(es, GRAPH_ENGINE_STEPS[0])
+        host_us = (time.perf_counter() - t0) * 1e6 / GRAPH_ENGINE_STEPS[0]
+        torch.cuda.synchronize()
+        expect = EMITTER_FRAME_FUNCTIONS + (
+            ("emitter_ring",) if alloc == "ring" else ())
+        trace = trace_frames(lambda: eng.step_many(es, 1),
+                             GRAPH_TRACE_FRAMES, expect)
+        print(f"phase 14: engine {EMIT_SLOTS} slots {alloc}/{layout}: "
+              f"step_many({GRAPH_ENGINE_STEPS[0]}) and "
+              f"({GRAPH_ENGINE_STEPS[1]}) through the frame graph == "
+              f"{frames} eager frames: every tensor of the state "
+              f"bit-identical (alive {n_alive}); {counted}")
+        print(f"phase 14: engine {alloc}/{layout} ms a frame: graphs "
+              f"{ms[1]:.4f} over step_many({GRAPH_ENGINE_STEPS[1]}) "
+              f"({ms[0]:.4f} over ({GRAPH_ENGINE_STEPS[0]}), with the "
+              f"warm-up and capture), eager {eager_ms[1]:.4f} "
+              f"({eager_ms[0]:.4f}); the host's microseconds a frame "
+              f"{host_us:.1f} a replay; a trace of {GRAPH_TRACE_FRAMES} "
+              f"replays: {trace['kernels']:.1f} kernels and "
+              f"{trace['moves']:.1f} copies/sets a frame (select/packed8 "
+              f"before the emitter frame's kernels: "
+              f"{ENGINE_REPLAY_BEFORE[0]} and {ENGINE_REPLAY_BEFORE[1]}), "
+              f"{trace['device_ms']:.4f} ms of device time in "
+              f"{trace['wall_ms']:.4f} ms a frame, device busy "
+              f"{trace['busy']:.1%}; microseconds a frame: "
+              + "; ".join(f"{name[:40]} {us / GRAPH_TRACE_FRAMES:.2f}"
+                          for name, (_, us) in trace["sums"].items()))
+        out[(alloc, layout)] = dict(ms=ms[1], eager_ms=eager_ms[1],
+                                    host_us=host_us, **trace)
+        del es, eng
+        torch.cuda.empty_cache()
+    return out[GRAPH_ENGINE_RUNS[0]]
 
 
 # ---------------------------------------------------------------------------
@@ -3447,6 +3527,369 @@ def trace_10m(dev, frames: int = 2, top: int = 12):
           f"frame: " + "; ".join(f"{name[:40]} {us / frames:.1f}"
                                  for name, (_, us) in largest))
 
+
+# ---------------------------------------------------------------------------
+# phase 16: the emitter frame's kernels
+# ---------------------------------------------------------------------------
+
+#: each emitter frame kernel's XLA counterpart in the JAX package (no Pallas kernel there)
+EMITTER_REPLACES = dict(
+    emitter_spawn="particlesystem_tpu/models/emitter.py:68",
+    emitter_ring="particlesystem_tpu/ops/fused_step.py:181",
+    emitter_tail="particlesystem_tpu/runtime/engine.py:186")
+#: frames and salts of the spawn window's checks (2^31 - 1: the last frame
+#: of JAX's int32 frame, whose float32 rounds up in slim's death frame)
+SPAWN_FRAMES = (0, 1, 2 ** 31 - 1)
+SPAWN_SALTS = (0, 3)
+#: the whole frames phase 16 holds: (alloc, layout, slots); the small ring
+#: wraps within the frames (1,669 rows a frame into 65,536 slots)
+FRAME_RUNS = (("select", "packed8", 1 << 20), ("select", "slim", 1 << 20),
+              ("strided", "packed8", 1 << 20), ("ring", "packed8", 1 << 20),
+              ("ring", "packed8", 1 << 16))
+FRAME_RUN_FRAMES = 120
+#: float32 operations of one spawn row besides its hashes, pow, sin and
+#: cos: accum (3), r and pos (7), theta and its root (2), phi (1), the
+#: direction (15), speed (5), vel (3), life (2), slim's death (2)
+SPAWN_ROW_FLOPS = 40
+
+
+def three_emitter_scene(capacity: int):
+    """Three emitters whose budgets (168 + 118 + 52 = 338 rows) are no
+    multiple of a warp, with unequal cones, jitters and radii."""
+    from particlesystem_tpu_torch import (Emitter, EmitterSceneConfig,
+                                          PlaneCollider)
+    return EmitterSceneConfig(
+        capacity=capacity, dt=1.0 / 60.0, gravity=(0.0, -9.8, 0.0),
+        emitters=(
+            Emitter(pos=(0.0, 1.0, 0.0), speed=6.0, rate=10_000.0,
+                    cone_angle=1.1, speed_jitter=0.4, radius=0.2),
+            Emitter(pos=(2.0, 0.5, -1.0), direction=(1.0, 0.2, 0.0),
+                    speed=3.0, rate=7_000.0, cone_angle=0.05,
+                    speed_jitter=0.0, radius=1.5, life_min=0.5,
+                    life_max=0.75),
+            Emitter(pos=(-1.0, 2.0, 3.0), direction=(0.0, -1.0, 0.3),
+                    speed=12.0, rate=3_001.0, cone_angle=2.5,
+                    speed_jitter=0.9, radius=0.0)),
+        planes=(PlaneCollider(),), seed=7)
+
+
+def spawn_scenes():
+    """(name, scene) of the spawn window's checks: the bench scene at 1M
+    and 10M, the entry scene, three emitters, none."""
+    from particlesystem_tpu_torch import EmitterSceneConfig
+    from particlesystem_tpu_torch.entry import entry_scene
+    return (("bench 1M", bench_scene(1 << 20)),
+            ("bench 10M", bench_scene(EMIT_SLOTS)),
+            ("entry", entry_scene()),
+            ("three emitters", three_emitter_scene(1 << 16)),
+            ("no emitter", EmitterSceneConfig(capacity=1 << 16, seed=3)))
+
+
+def spawn_inputs(cfg, n_fields: int, dev, seed: int):
+    """(table, accum, window width, a fresh window) for ``cfg``: accum
+    from ``seed`` in [0, 1), with 0 and the float just below 1."""
+    import numpy as np
+    import torch
+    from particlesystem_tpu_torch.models import emitter as em
+    from particlesystem_tpu_torch.ops import engine_kernels as ek
+    from particlesystem_tpu_torch.runtime.engine import PackedEngine
+    table = em.SpawnTable(cfg, dev)
+    n = max(1, len(cfg.emitters))
+    acc = np.random.default_rng(seed).uniform(0.0, 1.0, n).astype(np.float32)
+    acc[0] = 0.0
+    acc[-1] = np.nextafter(np.float32(1.0), np.float32(0.0))
+    w = PackedEngine(cfg, alloc="ring", device=dev).spawn_width
+    return (table, torch.tensor(acc, device=dev), w,
+            ek.new_window(n_fields, w, n, dev))
+
+
+def hold_window(got, want, what) -> float:
+    """A window against the plain version's, bit for bit: every field of
+    the rows, valid and the next accum; names the fields that differ."""
+    import torch
+    rows, valid, acc = (t.cpu() for t in got)
+    wrows, wvalid, wacc = (t.cpu() for t in want)
+    bad = [f"field {i} ({int((a.view(torch.int32) != b.view(torch.int32)).sum())} rows)"
+           for i, (a, b) in enumerate(zip(rows, wrows))
+           if not torch.equal(a.view(torch.int32), b.view(torch.int32))]
+    if not torch.equal(valid, wvalid):
+        bad.append(f"valid ({int((valid != wvalid).sum())} rows)")
+    if not torch.equal(acc.view(torch.int32), wacc.view(torch.int32)):
+        bad.append("accum")
+    assert not bad, f"{what}: kernel and plain version differ in " + \
+        ", ".join(bad)
+    return max(float((rows - wrows).abs().max()),
+               float((acc - wacc).abs().max()))
+
+
+def hold_spawn(dev) -> tuple:
+    """The spawn kernel against its plain version on the card, bit for
+    bit, for every scene of :func:`spawn_scenes`, packed8 and slim, frames
+    :data:`SPAWN_FRAMES` (read from device memory), salts
+    :data:`SPAWN_SALTS`.  Returns (cases, largest difference)."""
+    import torch
+    from particlesystem_tpu_torch.ops import engine_kernels as ek
+    cases, err = 0, 0.0
+    for k, (name, cfg) in enumerate(spawn_scenes()):
+        for nf in (8, 7):
+            table, accum, w, out = spawn_inputs(cfg, nf, dev, 40 + k)
+            for frame in SPAWN_FRAMES:
+                frame_t = torch.tensor(frame, dtype=torch.int64, device=dev)
+                for salt in SPAWN_SALTS:
+                    want = ek.spawn_window_plain(cfg, table, accum, frame_t,
+                                                 salt, nf, w)
+                    got = ek.spawn_window_cuda(cfg, table, accum, frame_t,
+                                               salt, out)
+                    err = max(err, hold_window(
+                        got, want, f"spawn window, {name}, "
+                        f"{'slim' if nf == 7 else 'packed8'}, frame {frame}, "
+                        f"salt {salt}"))
+                    cases += 1
+        print(f"phase 16: spawn window, {name} ({table.total} rows, "
+              f"{len(cfg.emitters)} emitters, window {w}): packed8 and slim, "
+              f"frames {SPAWN_FRAMES}, salts {SPAWN_SALTS}: rows, valid and "
+              f"accum kernel == plain bit for bit")
+    return cases, err
+
+
+def ring_inputs(n_real: int, w: int, n_valid: int, cursor: int, dev,
+                seed: int):
+    """Random ring fields (n_real + w slots, 8 fields), a window of
+    ``n_valid`` valid rows scattered over ``w`` and the cursor."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    fields = [torch.rand((n_real + w,), generator=gen).to(dev)
+              for _ in range(8)]
+    rows = (torch.rand((8, w), generator=gen) * 4.0 - 1.0).to(dev)
+    valid = torch.zeros((w,), dtype=torch.bool)
+    valid[torch.randperm(w, generator=gen)[:n_valid]] = True
+    return (fields, rows, valid.to(dev),
+            torch.tensor(cursor, dtype=torch.int32, device=dev))
+
+
+def ring_cases(n_real: int, w: int):
+    """(name, n_valid, cursor) of the ring checks: a cursor at 0, one in
+    the middle and one where the write wraps, with none, some and all
+    rows valid."""
+    some = w * 4 // 5 + 3
+    return [(f"cursor {c}, {nv} valid", nv, c)
+            for c in (0, n_real // 2, n_real - some // 2)
+            for nv in (0, some, w)]
+
+
+def hold_ring(dev, n_real: int = 1 << 20, w: int = 2048) -> tuple:
+    """The ring kernel against ``fused_step.ring_spawn`` on the card, bit
+    for bit (every field, shadow included, and the cursor)."""
+    import torch
+    from particlesystem_tpu_torch.ops import engine_kernels as ek
+    err = 0.0
+    cases = ring_cases(n_real, w)
+    for k, (name, nv, c) in enumerate(cases):
+        fields, rows, valid, cursor = ring_inputs(n_real, w, nv, c, dev,
+                                                  50 + k)
+        want_f = [f.clone() for f in fields]
+        want_c = cursor.clone()
+        ek.ring_write_plain(want_f, rows, valid, want_c, n_real)
+        ek.ring_write_cuda(fields, rows, valid, cursor, n_real)
+        err = max(err, same_bits(fields + [cursor.view(torch.float32)],
+                                 want_f + [want_c.view(torch.float32)],
+                                 f"ring write, {name}"))
+    print(f"phase 16: ring write at {n_real} slots + a shadow of {w}: "
+          + "; ".join(n for n, _, _ in cases)
+          + ": every field and the cursor kernel == plain bit for bit")
+    return len(cases), err
+
+
+def hold_tail(dev) -> tuple:
+    """The tail kernel against its plain version, bit for bit: accum,
+    cursor and frame, with the cursor advanced (and wrapping) and not."""
+    import torch
+    from particlesystem_tpu_torch.ops import engine_kernels as ek
+    gen = torch.Generator(device="cpu").manual_seed(60)
+    cases = 0
+    for n_acc, cursor, advance, slots, frame in (
+            (2, 0, 2048, 1 << 20, 0), (3, (1 << 20) - 2048, 2048, 1 << 20, 7),
+            (1, 5, 0, 1 << 16, 2 ** 31 - 1), (200, 1024, 1024, 4096, 12)):
+        bufs = [torch.rand((n_acc,), generator=gen).to(dev),
+                torch.rand((n_acc,), generator=gen).to(dev),
+                torch.tensor(cursor, dtype=torch.int32, device=dev),
+                torch.tensor(frame, dtype=torch.int64, device=dev)]
+        want = [b.clone() for b in bufs]
+        ek.frame_tail_plain(*want, advance, slots)
+        ek.frame_tail_cuda(*bufs, advance, slots)
+        for a, b, name in zip(bufs, want, ("accum", "next", "cursor",
+                                           "frame")):
+            assert torch.equal(a, b), f"tail: {name} differs"
+        cases += 1
+    print(f"phase 16: frame tail, {cases} cases (the cursor advanced, "
+          f"wrapping and not; 200 emitters): accum, cursor and frame "
+          f"kernel == plain bit for bit")
+    return cases, 0.0
+
+
+def hold_engine_frames(dev) -> None:
+    """:data:`FRAME_RUNS`: ``step_many`` through the frame graph (the
+    kernels) against as many eager ``_frame`` calls (the plain versions),
+    every tensor of the state bit for bit, from an all-alive state; each
+    replay launches the spawn, physics and tail kernels (and ring's) once
+    and records nothing else."""
+    import torch
+    from particlesystem_tpu_torch.runtime.engine import PackedEngine
+    for alloc, layout, slots in FRAME_RUNS:
+        cfg = bench_scene(slots)
+        init = full_packed(slots, 61)
+        eng = PackedEngine(cfg, alloc=alloc, layout=layout, device=dev)
+        reset_launches()
+        es = eng.step_many(eng.init(init), FRAME_RUN_FRAMES)
+        kernels = ("emitter_spawn", "physics_step", "emitter_tail") + (
+            ("emitter_ring",) if alloc == "ring" else ())
+        counted = graph_launch_checks(eng.graphs, False, FRAME_RUN_FRAMES,
+                                      kernels)
+        ref = eng.init(init)
+        with counts_kept():
+            for _ in range(FRAME_RUN_FRAMES):
+                ref = eng._frame(ref, eng.salt)
+        assert ref.frame == es.frame == FRAME_RUN_FRAMES
+        for i, (a, b) in enumerate(zip(es.tensors(), ref.tensors(),
+                                       strict=True)):
+            assert torch.equal(a, b), \
+                f"{alloc}/{layout} {slots}: graph vs eager, tensor {i}"
+        print(f"phase 16: engine {slots} slots {alloc}/{layout}: "
+              f"step_many({FRAME_RUN_FRAMES}) through the frame graph == "
+              f"{FRAME_RUN_FRAMES} eager plain frames, every tensor of the "
+              f"state bit for bit (cursor {int(es.cursor)}, alive "
+              f"{int(eng.alive_count(es))}); {counted}")
+        del es, ref, eng
+
+
+def spawn_work(cfg, n_fields: int, w: int):
+    """(bytes, hashes, float ops) of one spawn launch: the table (each
+    column a row, the rates), the rows' emitter index, accum and the frame
+    in; the window, valid and the next accum out.  8 hashes a row and 3 a
+    block for the keys; :data:`SPAWN_ROW_FLOPS` a row."""
+    from particlesystem_tpu_torch.models import emitter as em
+    total = em.SpawnTable(cfg, "cpu").total
+    e = max(1, len(cfg.emitters))
+    columns = sum(width for _, width in em.SpawnTable.COLUMNS)
+    n_bytes = (4 * (columns * total + len(cfg.emitters)) + 4 * total
+               + 4 * e + 8 + 4 * n_fields * w + w + 4 * e)
+    return n_bytes, 8 * total + 3 * -(-w // 256), SPAWN_ROW_FLOPS * total
+
+
+def spawn_bound(n_bytes: int, hashes: int, flops: int):
+    """(least milliseconds, what bounds it): the bytes at the memory rate
+    against the hashes' integer instructions and the float operations at
+    the lane rate (pow, sin and cos not counted)."""
+    t_ops = ((hashes * INT_OPS_PER_HASH + flops) / DISPATCH_LANES_PER_S
+             * 1e3)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ring_work(n_fields: int, w: int, n_valid: int, cursor: int,
+              n_real: int) -> int:
+    """Bytes of one ring write: valid, the valid rows in and out, the
+    cursor in and out; on a wrap the fold's copy and the shadow's zeros."""
+    n_bytes = w + 2 * 4 * n_fields * n_valid + 8
+    wrapped = cursor + n_valid - n_real
+    if wrapped > 0:
+        n_bytes += 4 * n_fields * (2 * min(wrapped, n_real) + w)
+    return n_bytes
+
+
+def time_emitter_kernel(name, kern, plain, bound, by, floor) -> dict:
+    """Kernel against plain version timed (plain, kernel, kernel, plain)
+    through the wrapper, in a CUDA graph and in a graph with the L2
+    cleared, beside the bound and one empty kernel's time in a graph."""
+    p1 = cuda_ms(plain, 3)
+    k1 = cuda_ms(kern, 50)
+    k2 = cuda_ms(kern, 50)
+    p2 = cuda_ms(plain, 3)
+    in_graph = graph_ms(kern, 50)
+    cold = cold_graph_ms(kern, 20)
+    print(f"phase 16: {name}: kernel {k1:.5f} / {k2:.5f} ms through the "
+          f"wrapper, {in_graph:.5f} ms in a CUDA graph, {cold:.5f} ms in a "
+          f"graph with the L2 cleared; plain {p1:.4f} / {p2:.4f} ms "
+          f"(plain, kernel, kernel, plain); bound {bound:.7f} ms ({by}); "
+          f"one empty kernel {floor:.5f} ms in a CUDA graph")
+    return dict(ms=min(k1, k2), graph_ms=in_graph, cold_ms=cold,
+                plain_ms=min(p1, p2), bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
+def time_emitter_kernels(dev) -> dict:
+    """Each kernel on the inputs the bench scene's 10M frame gives it
+    (select/packed8 for spawn and tail; ring/packed8 at 10M for the ring
+    write, the window of a frame that does not wrap), the plain versions
+    on the same inputs.  Returns {kernel: row of the kernels line}."""
+    import torch
+    from particlesystem_tpu_torch.ops import engine_kernels as ek
+    cfg = bench_scene(EMIT_SLOTS)
+    floor = graph_ms(empty_kernel(dev), 50)
+    table, accum, w, out = spawn_inputs(cfg, 8, dev, 62)
+    frame_t = torch.tensor(20, dtype=torch.int64, device=dev)
+    work = spawn_work(cfg, 8, w)
+    rows = {"emitter_spawn": time_emitter_kernel(
+        f"spawn window, bench scene, {table.total} rows in {w}",
+        lambda: ek.spawn_window_cuda(cfg, table, accum, frame_t, 0, out),
+        lambda: ek.spawn_window_plain(cfg, table, accum, frame_t, 0, 8, w),
+        *spawn_bound(*work), floor)}
+    print(f"phase 16: spawn window: {work[0]} bytes, {work[1]} hashes, "
+          f"{work[2]} float operations")
+    n_valid = int(out.valid.sum())
+    # from the middle of the ring: the calls advance the cursor by
+    # n_valid each and never reach the wrap
+    fields, rows_w, valid, cursor = ring_inputs(EMIT_SLOTS, w, n_valid,
+                                                EMIT_SLOTS // 2, dev, 63)
+    n_bytes = ring_work(8, w, n_valid, EMIT_SLOTS // 2, EMIT_SLOTS)
+    bound, by = roofline_ms(n_bytes, 0)
+    rows["emitter_ring"] = time_emitter_kernel(
+        f"ring write, {EMIT_SLOTS} slots, {n_valid} of {w} rows valid "
+        f"({n_bytes} bytes)",
+        lambda: ek.ring_write_cuda(fields, rows_w, valid, cursor, EMIT_SLOTS),
+        lambda: ek.ring_write_plain(fields, rows_w, valid, cursor,
+                                    EMIT_SLOTS),
+        bound, by, floor)
+    acc_next = out.accum.clone()
+    cur = torch.zeros((), dtype=torch.int32, device=dev)
+    n_bytes = 2 * 4 * accum.numel() + 8 + 16
+    bound, by = roofline_ms(n_bytes, 0)
+    rows["emitter_tail"] = time_emitter_kernel(
+        f"frame tail ({n_bytes} bytes)",
+        lambda: ek.frame_tail_cuda(accum, acc_next, cur, frame_t, w,
+                                   EMIT_SLOTS),
+        lambda: ek.frame_tail_plain(accum, acc_next, cur, frame_t, w,
+                                    EMIT_SLOTS),
+        bound, by, floor)
+    return rows
+
+
+def phase_emitter_kernels(dev) -> tuple:
+    """16: the emitter frame's kernels (``csrc/emitter_frame.cu``, through
+    ``ops/engine_kernels.py``).  (a) Each against its plain version on the
+    card, bit for bit: the spawn window (rows, valid, next accum; slim's
+    death frame among the rows) on the bench scene at 1M and 10M, the
+    entry scene, three emitters and none, packed8 and slim, frames 0, 1
+    and 2^31 - 1, salts 0 and 3; the ring write at three cursors with
+    none, some and all rows valid; the tail.  (b) :data:`FRAME_RUNS`,
+    120 frames of graph replays against 120 eager plain frames, bit for
+    bit.  (c) Each kernel timed through its wrapper, in a CUDA graph and
+    in a graph with the L2 cleared, beside its plain version, its bound
+    and the launch floor.  Returns (rows of the kernels line, the largest
+    difference)."""
+    t0 = time.perf_counter()
+    with counts_kept():
+        n_spawn, e1 = hold_spawn(dev)
+        n_ring, e2 = hold_ring(dev)
+        n_tail, e3 = hold_tail(dev)
+    hold_engine_frames(dev)
+    with counts_kept():
+        rows = time_emitter_kernels(dev)
+    print(f"phase 16: {n_spawn} spawn windows, {n_ring} ring writes, "
+          f"{n_tail} tails held; {time.perf_counter() - t0:.1f} s")
+    return rows, max(e1, e2, e3)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3489,6 +3932,7 @@ def main() -> int:
     phase_graphs_engine(dev)
     frame_rows, frame_err = phase_frame_kernels(
         dev, main_path.pop("plateau_state"), main_path["plateau_frame"])
+    emitter_rows, emitter_err = phase_emitter_kernels(dev)
 
     kernels = [{
         "name": "cluster_pair",
@@ -3565,7 +4009,21 @@ def main() -> int:
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
-    } for name, row in frame_rows.items()]
+    } for name, row in frame_rows.items()] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "particlesystem_tpu_torch/csrc/emitter_frame.cu",
+        # XLA's fusions of the jitted engine frame: no Pallas kernel there
+        "replaces": EMITTER_REPLACES[name],
+        "launches": emitter["emitter_launches"][name],
+        "max_abs_err": emitter_err,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    } for name, row in emitter_rows.items()]
+    assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -69,38 +69,65 @@ def cbrt_f32(x: torch.Tensor) -> torch.Tensor:
 class SpawnTable:
     """A scene's static per-row spawn parameters, on ``device``: the rows of
     every emitter's budget concatenated, each row carrying its emitter's
-    constants (the JAX package builds the same columns at trace time)."""
+    constants (the JAX package builds the same columns at trace time).
+
+    They lie in one float32 tensor, :attr:`packed`, which the spawn kernel
+    reads (``ops/engine_kernels.py``): the :data:`COLUMNS` column-major
+    (column ``c`` of row ``j`` at ``c * total + j``), then the emitters'
+    rates.  The attributes the plain version reads (``pos0``, ``basis``,
+    ``rates``, ...) are views of it; ``row_emitter`` is each row's emitter
+    (int32)."""
+
+    #: the packed table's columns, in ``csrc/emitter_frame.cu``'s order
+    #: (``basis``: b0, b1, b2, three each)
+    COLUMNS = ("pos0", 3), ("radius", 1), ("basis", 9), ("cone", 1), \
+        ("speed0", 1), ("jitter", 1), ("lmin", 1), ("lspan", 1), \
+        ("row_local", 1)
 
     def __init__(self, cfg: EmitterSceneConfig, device):
         dt = cfg.dt
         self.budgets = [emitter_budget(e, dt) for e in cfg.emitters]
-        self.total = sum(self.budgets)
+        self.total = t = sum(self.budgets)
 
-        def per_row(getter):
-            cols = [np.broadcast_to(np.asarray(getter(e), np.float32),
-                                    (s,) + np.shape(getter(e)))
-                    for e, s in zip(cfg.emitters, self.budgets)]
-            return torch.tensor(np.concatenate(cols), device=device)
+        def per_row(getter, width: int) -> np.ndarray:
+            """(width, total) float32: each emitter's value over its rows."""
+            cols = [np.broadcast_to(
+                np.asarray(getter(e, s), np.float32).reshape(width, -1),
+                (width, s)) for e, s in zip(cfg.emitters, self.budgets)]
+            return (np.concatenate(cols, axis=1) if cols
+                    else np.zeros((width, 0), np.float32))
 
-        self.rates = torch.tensor(
-            np.asarray([e.rate * dt for e in cfg.emitters], np.float32),
+        host = dict(
+            pos0=per_row(lambda e, s: e.pos, 3),
+            radius=per_row(lambda e, s: e.radius, 1),
+            basis=per_row(lambda e, s: _basis(e.direction), 9),
+            cone=per_row(lambda e, s: e.cone_angle, 1),
+            speed0=per_row(lambda e, s: e.speed, 1),
+            jitter=per_row(lambda e, s: e.speed_jitter, 1),
+            lmin=per_row(lambda e, s: e.life_min, 1),
+            lspan=per_row(lambda e, s: e.life_max - e.life_min, 1),
+            row_local=per_row(lambda e, s: np.arange(s), 1))
+        rates = np.asarray([e.rate * dt for e in cfg.emitters], np.float32)
+        self.packed = torch.tensor(np.concatenate(
+            [host[name].reshape(-1) for name, _ in self.COLUMNS] + [rates]),
             device=device)
-        self.row_emitter = torch.tensor(np.concatenate(
-            [np.full((s,), i) for i, s in enumerate(self.budgets)]),
-            dtype=torch.int64, device=device)
-        self.row_local = torch.tensor(np.concatenate(
-            [np.arange(s, dtype=np.float32) for s in self.budgets]),
-            device=device)
-        self.pos0 = per_row(lambda e: e.pos)
-        self.radius = per_row(lambda e: e.radius)
-        self.basis = [per_row(lambda e, i=i: _basis(e.direction)[i])
-                      for i in range(3)]
-        self.cone = per_row(lambda e: e.cone_angle)
-        self.speed0 = per_row(lambda e: e.speed)
-        self.jitter = per_row(lambda e: e.speed_jitter)
-        self.lmin = per_row(lambda e: e.life_min)
-        self.lspan = per_row(lambda e: e.life_max - e.life_min)
-        self.weight = per_row(lambda e: e.weight)
+        cols, start = {}, 0
+        for name, width in self.COLUMNS:
+            cols[name] = self.packed[start * t:(start + width) * t].view(
+                width, t).T
+            start += width
+        self.pos0 = cols["pos0"]
+        self.basis = [cols["basis"][:, 3 * i:3 * i + 3] for i in range(3)]
+        (self.radius, self.cone, self.speed0, self.jitter, self.lmin,
+         self.lspan, self.row_local) = (
+            cols[k][:, 0] for k in ("radius", "cone", "speed0", "jitter",
+                                    "lmin", "lspan", "row_local"))
+        self.rates = self.packed[start * t:]
+        self.row_emitter = torch.tensor(
+            np.repeat(np.arange(len(self.budgets), dtype=np.int32),
+                      self.budgets), device=device)
+        self.weight = torch.tensor(per_row(lambda e, s: e.weight, 1)[0],
+                                   device=device)
 
 
 def spawn_draws(cfg: EmitterSceneConfig, salt: int, total: int) -> list:

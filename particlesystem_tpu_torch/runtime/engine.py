@@ -8,6 +8,16 @@ synchronisation: ``cursor``, ``n_free``, ``free_list`` and ``accum`` stay
 device tensors, and the frame index lives on the host (``EngineState.frame``)
 and, for the frame's draws, on the device.
 
+The frame the graphs run (:meth:`PackedEngine._static_frame`) is the
+kernels of ``ops/engine_kernels.py`` around the physics kernel: the spawn
+kernel writes the engine's own window (rows, valid and the next accum,
+buffers of the engine and not of the state), the physics kernel reads it
+(``strided``, ``select``) or the ring kernel writes it into the fields
+(``ring``), and the tail kernel carries accum, the cursor and the device
+frame; ``exact`` takes its rows from the window and keeps its plain
+free-list refresh and write.  On the CPU the same composition runs the
+plain versions.
+
 :meth:`PackedEngine.step` and :meth:`~PackedEngine.step_many` run the frame
 as a CUDA graph (``utils/frame_graph.FrameGraphs``), the counterpart of the
 JAX engine's jitted frame and its ``fori_loop``: the engine keeps one
@@ -57,6 +67,7 @@ import torch
 
 from ..core.config import EmitterSceneConfig
 from ..models import emitter as em
+from ..ops import engine_kernels as ek
 from ..ops import fused_step as fs
 from ..ops.neighbor import as_f32
 from ..ops.physics_kernel import physics_step
@@ -135,6 +146,10 @@ class PackedEngine:
         self.field_shape = ((self.b_rows, self.spawn_width)
                             if alloc == "select" else (self.total,))
         self._table = em.SpawnTable(cfg, self.device)
+        # the spawn kernel's window, which the physics or the ring kernel
+        # reads, and the next accum, which the tail kernel copies in
+        self._window = ek.new_window(self.n_fields, self.spawn_width,
+                                     max(1, len(cfg.emitters)), self.device)
         # the frame loop: the static state the graphs read and write, its
         # frame on the device, one graph a refresh branch
         self.graphs = FrameGraphs(self.device)
@@ -188,16 +203,6 @@ class PackedEngine:
             cursor=torch.zeros((), dtype=torch.int32, device=dev), frame=0)
 
     # ------------------------------------------------------------------
-    def _padded(self, rows, valid):
-        """Spawn rows as one (n_fields, W) tensor and valid as (W,),
-        zero-padded to the spawn width."""
-        rows = torch.stack(rows)
-        pad = self.spawn_width - rows.shape[1]
-        if pad:
-            rows = torch.cat([rows, rows.new_zeros((rows.shape[0], pad))], 1)
-            valid = torch.cat([valid, valid.new_zeros((pad,))])
-        return rows, valid
-
     def _frame(self, s: EngineState, salt: int = 0, frame=None,
                refresh: Optional[bool] = None) -> EngineState:
         """One frame from ``s``, eager; consumes ``s`` (its fields may be
@@ -207,26 +212,23 @@ class PackedEngine:
         (``s.frame % refresh_interval == 0`` when None)."""
         cfg = self.cfg
         fr = s.frame if frame is None else frame
-        spawn, accum = em.spawn_fields(cfg, fr, s.accum, salt,
-                                       table=self._table)
-        if self.layout == "slim":
-            rows = fs.pack_spawn_rows_slim(spawn, fr, cfg.dt)
-        else:
-            rows = fs.pack_spawn_rows(spawn)
+        rows, valid, accum = ek.spawn_rows_plain(
+            cfg, self._table, s.accum, fr, salt, self.layout == "slim")
         free_list, n_free, cursor = s.free_list, s.n_free, s.cursor
 
         if self.alloc in ("strided", "select"):
             # physics and the spawn window in one launch; the cursor
             # advances here, on the device
-            window = (*self._padded(rows, spawn.valid), cursor)
+            window = (*ek.pad_window(rows, valid, self.spawn_width),
+                      cursor)
             flat = physics_step(tuple(f.view(-1) for f in s.fields), cfg,
                                 window)
             fields = tuple(f.view(self.field_shape) for f in flat)
             cursor = torch.remainder(cursor + self.spawn_width, cfg.slots)
         elif self.alloc == "ring":
             fields = physics_step(s.fields, cfg)
-            prow, valid = self._padded(rows, spawn.valid)
-            fields, cursor = fs.ring_spawn(fields, tuple(prow), valid,
+            prow, pvalid = ek.pad_window(rows, valid, self.spawn_width)
+            fields, cursor = fs.ring_spawn(fields, tuple(prow), pvalid,
                                            cursor, cfg.slots)
         else:
             fields = physics_step(s.fields, cfg)
@@ -236,8 +238,8 @@ class PackedEngine:
                 free_list, n_free = fs.refresh_free_list(
                     fields, self.free_list_size)
                 cursor = torch.zeros_like(cursor)
-            fields, cursor = fs.spawn_exact(fields, rows, spawn.valid,
-                                            free_list, cursor, n_free)
+            fields, cursor = fs.spawn_exact(fields, rows, valid, free_list,
+                                            cursor, n_free)
 
         return EngineState(fields=tuple(fields), accum=accum,
                            free_list=free_list, cursor=cursor, n_free=n_free,
@@ -271,13 +273,41 @@ class PackedEngine:
     def _static_frame(self, refresh: bool) -> None:
         """The frame the graphs capture: the static state to the next, in
         place, and the device frame one on; the engine's salt is baked
-        in."""
-        st = self._static
-        out = self._frame(st, self.salt, frame=self._frame_t, refresh=refresh)
-        for dst, src in zip(st.tensors(), out.tensors(), strict=True):
-            if src.data_ptr() != dst.data_ptr():
-                dst.copy_(src)
-        self._frame_t.add_(1)
+        in.  Spawn kernel, physics kernel (with the window for
+        ``strided``/``select``), the ring kernel (``ring``) and the tail
+        kernel, or their plain versions on the CPU: bit for bit
+        :meth:`_frame`."""
+        st, cfg = self._static, self.cfg
+        win = ek.spawn_window(cfg, self._table, st.accum, self._frame_t,
+                              self.salt, self._window)
+        advance = 0
+        if self.alloc in ("strided", "select"):
+            flat = tuple(f.view(-1) for f in st.fields)
+            _put(flat, physics_step(flat, cfg, (win.rows, win.valid,
+                                                st.cursor)))
+            advance = self.spawn_width
+        elif self.alloc == "ring":
+            _put(st.fields, physics_step(st.fields, cfg))
+            ek.ring_write(st.fields, win.rows, win.valid, st.cursor,
+                          cfg.slots)
+        else:
+            # the window's first rows are spawn_fields' rows; the free
+            # list's refresh and write stay plain
+            fields = physics_step(st.fields, cfg)
+            free_list, n_free, cursor = st.free_list, st.n_free, st.cursor
+            if refresh:
+                free_list, n_free = fs.refresh_free_list(
+                    fields, self.free_list_size)
+                cursor = torch.zeros_like(cursor)
+            n = max(1, self._table.total)
+            fields, cursor = fs.spawn_exact(fields, tuple(win.rows[:, :n]),
+                                            win.valid[:n], free_list, cursor,
+                                            n_free)
+            _put(st.fields, fields)
+            _put((st.free_list, st.n_free, st.cursor),
+                 (free_list, n_free, cursor))
+        ek.frame_tail(st.accum, win.accum, st.cursor, self._frame_t, advance,
+                      cfg.slots)
 
     def _refreshes(self, frame: int) -> bool:
         """Whether ``frame`` refreshes ``alloc="exact"``'s free list: a
@@ -321,6 +351,14 @@ class PackedEngine:
     def _live_region(self, f: torch.Tensor) -> torch.Tensor:
         """The real slots of one field, in native shape (no flatten)."""
         return f if self.alloc == "select" else f[: self.cfg.slots]
+
+
+def _put(dst, src) -> None:
+    """Copy each tensor of ``src`` into its static counterpart in ``dst``,
+    unless it is that tensor (a kernel's in-place result)."""
+    for d, t in zip(dst, src, strict=True):
+        if t.data_ptr() != d.data_ptr():
+            d.copy_(t)
 
 
 def engine_state_from_numpy(leaves: Sequence, like) -> EngineState:

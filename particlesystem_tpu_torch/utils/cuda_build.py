@@ -4,8 +4,9 @@ Every ``*.cu`` file under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc`` process per source, all started together, and
 the objects are linked into one shared library with a plain C interface,
 bound with ``ctypes``.  The library lands in ``_build/`` inside the
-package, named by a hash of the sources and flags, so the first call after
-a change builds it and later calls (and processes) reuse it.  Nothing is
+package, named by a hash of the flags and of every file under ``csrc/``
+(the headers the sources include among them), so the first call after a
+change builds it and later calls (and processes) reuse it.  Nothing is
 built or loaded when the module is imported.
 
 Every kernel wrapper launches through :func:`launch`, which keeps the host's
@@ -51,9 +52,9 @@ def _nvcc() -> str:
 
 
 def _library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    files = sorted(p for p in CSRC.iterdir() if p.is_file())
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sources:
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libps_kernels_{h.hexdigest()[:16]}.so"
@@ -141,6 +142,16 @@ def load_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.ps_empty
     fn.argtypes = [_P]
+    fn.restype = ctypes.c_int
+    u = ctypes.c_uint32
+    fn = lib.ps_emitter_spawn
+    fn.argtypes = [_P, _P, i, i, _P, _P, _P, u, u, u, _P, _P, i, i, f, _P]
+    fn.restype = ctypes.c_int
+    fn = lib.ps_emitter_ring
+    fn.argtypes = [_P] * 8 + [i, n, _P, _P, i, _P, _P]
+    fn.restype = ctypes.c_int
+    fn = lib.ps_emitter_tail
+    fn.argtypes = [_P, _P, i, _P, i, n, _P, _P]
     fn.restype = ctypes.c_int
     return lib
 
