@@ -40,7 +40,7 @@ from .runtime.engine import EngineState, PackedEngine
 from .runtime.readback import AsyncReadback
 from .utils.device import resolve_device
 from .utils.frame_graph import FrameGraphs
-from .utils.timers import PhaseTimers, slope_ms
+from .utils.timers import PhaseTimers, slope_ms, span
 
 #: the statistics a frame leaves in the loop's static buffer, in order
 STAT_FIELDS = nbody.STAT_NAMES
@@ -85,7 +85,7 @@ class ParticleSystem:
         self._refresh = refresh_interval
         self._engine: Optional[PackedEngine] = None
         self._es: Optional[EngineState] = None
-        self.timers = PhaseTimers()
+        self.timers = PhaseTimers("engine.")
         self._readback: Optional[AsyncReadback] = None
 
     # -- scene construction -------------------------------------------------
@@ -234,9 +234,10 @@ class NBodySimulation:
         self.impl = impl
         self.adaptive_width = adaptive_width and impl == "dense"
         self.active_bucketing = active_bucketing
-        self.timers = PhaseTimers()
-        with self.timers.phase("fill"):
-            self.state = nbody.init_fill(cfg, self.device)
+        self.timers = PhaseTimers("nbody.")
+        t0 = time.perf_counter()
+        self.state = nbody.init_fill(cfg, self.device)  # records its span
+        self.timers.add("fill", time.perf_counter() - t0)
         self.frame = 0
         self.last_stats = None
         self.n_degraded_frames = 0  # frames whose neighbor pass truncated
@@ -277,7 +278,7 @@ class NBodySimulation:
         cur_rows = self._active or self.cfg.slots
         if want_rows < cur_rows:
             # shrink: compact alive rows into the prefix first
-            with self.timers.phase("compact"):
+            with self.timers.phase("compact", n=alive):
                 self.state = nbody.compact_state(self.state)
             self._active = want
         elif want_rows > cur_rows:
@@ -336,17 +337,20 @@ class NBodySimulation:
         alive, chunks dropped, alive, max cell occupancy, spawned] read in
         the batch's one host sync)."""
         if self.state is not self._static:
-            for f in FIELDS:
-                getattr(self._static, f).copy_(getattr(self.state, f))
+            with span("nbody.handin", n=len(FIELDS)):
+                for f in FIELDS:
+                    getattr(self._static, f).copy_(getattr(self.state, f))
             self.state = self._static
-        self._frame_t.fill_(self.frame)
-        self._guards.zero_()
-        key = self._key()
-        self.graphs.retain(key)
-        fn = lambda: self._loop_frame(self._active, self._width)
-        for _ in range(batch):
-            self.graphs.step(key, fn)
-        host = torch.cat([self._guards, self._stats]).tolist()
+        with span("nbody.enqueue", n=batch):
+            self._frame_t.fill_(self.frame)
+            self._guards.zero_()
+            key = self._key()
+            self.graphs.retain(key)
+            fn = lambda: self._loop_frame(self._active, self._width)
+            for _ in range(batch):
+                self.graphs.step(key, fn)
+        with span("nbody.readback", n=1):
+            host = torch.cat([self._guards, self._stats]).tolist()
         stats = dict(zip(STAT_FIELDS, host[3:]))
         # a copy: the next batch overwrites the buffer
         last = nbody.NBodyStats(**dict(zip(STAT_FIELDS,
@@ -377,33 +381,39 @@ class NBodySimulation:
         if num_iterations % batch:
             raise ValueError(f"num_iterations {num_iterations} must be a "
                              f"multiple of batch {batch}")
-        for _ in range(num_iterations // batch):
-            with self.timers.phase("step"):
-                # kept so a truncated batch can be redone at full width
-                prev = (self.state.map(lambda a: a.clone())
-                        if self._width != 0 else None)
-                stats, guards = self._batch(batch)
-                if guards[2] and self._width != 0:
-                    # the adaptive width truncated some frame of the batch:
-                    # redo the whole batch from the saved state at full
-                    # width, which is exact by construction
-                    self._width = 0
-                    self.state = prev
-                    stats, guards = self._batch(batch)
-            self.frame += batch
-            self.last_stats = stats
-            where = (f"frame {self.frame}" if batch == 1
-                     else f"batch ending at frame {self.frame}")
-            self._check_guards(where, guards[0], guards[1], guards[2])
-            if self.active_bucketing:
-                self._apply_bucketing(guards[3])
-            self._adapt_width(guards[4], guards[2])
-            if verbose:
-                spawned = "spawned" if batch == 1 else "last_spawned"
-                print(f"iter {self.frame}: alive={guards[3]} "
-                      f"{spawned}={guards[5]} max_cell={guards[4]} "
-                      f"active={self._active or self.cfg.slots}"
-                      + self._width_note())
+        with span("nbody.run", n=num_iterations):
+            for _ in range(num_iterations // batch):
+                with span("nbody.batch", n=batch):
+                    with self.timers.phase("step"):
+                        # kept so a truncated batch can be redone at full
+                        # width
+                        prev = (self.state.map(lambda a: a.clone())
+                                if self._width != 0 else None)
+                        stats, guards = self._batch(batch)
+                        if guards[2] and self._width != 0:
+                            # the adaptive width truncated some frame of
+                            # the batch: redo the whole batch from the
+                            # saved state at full width, which is exact by
+                            # construction
+                            self._width = 0
+                            self.state = prev
+                            stats, guards = self._batch(batch)
+                    with span("nbody.guards"):
+                        self.frame += batch
+                        self.last_stats = stats
+                        where = (f"frame {self.frame}" if batch == 1
+                                 else f"batch ending at frame {self.frame}")
+                        self._check_guards(where, guards[0], guards[1],
+                                           guards[2])
+                        if self.active_bucketing:
+                            self._apply_bucketing(guards[3])
+                        self._adapt_width(guards[4], guards[2])
+                if verbose:
+                    spawned = "spawned" if batch == 1 else "last_spawned"
+                    print(f"iter {self.frame}: alive={guards[3]} "
+                          f"{spawned}={guards[5]} max_cell={guards[4]} "
+                          f"active={self._active or self.cfg.slots}"
+                          + self._width_note())
         return self.last_stats
 
     # -- timing ------------------------------------------------------------------
@@ -524,8 +534,7 @@ class NBodySimulation:
         out["full_frame"] = self._loop_slope_ms(k1, k2, reps)
 
         for name, ms in out.items():
-            self.timers.totals[f"frame/{name}"] += ms / 1e3
-            self.timers.counts[f"frame/{name}"] += 1
+            self.timers.add(f"frame/{name}", ms / 1e3)
         return out
 
     def _loop_slope_ms(self, k1: int, k2: int, reps: int) -> float:

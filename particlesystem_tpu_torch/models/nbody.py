@@ -38,6 +38,7 @@ from ..ops import rng_kernel
 from ..ops.grid import (build_bins, chunk_occupancy, coords_to_cell,
                         wrap_positions)
 from ..ops.neighbor import collision_okey, neighbor_pass
+from ..utils.timers import span
 
 
 @dataclasses.dataclass
@@ -85,16 +86,17 @@ def init_fill(cfg: NBodyConfig, device, n: int | None = None
     n = cfg.n_fill if n is None else n
     if n > cfg.slots:
         raise ValueError(f"n_fill={n} exceeds capacity {cfg.slots}")
-    r, u_sign, age, life = rng_kernel.flat_fields(fill_draws(cfg, n), 0,
-                                                  device)
-    sign = torch.where(u_sign >= 0.5, 1.0, -1.0)
-    s = zero_state(cfg.slots, device)
-    s.pos[:n] = sign * r * cfg.grid.half_extent
-    s.age[:n] = age
-    s.life[:n] = life
-    s.w[:n] = cfg.weight
-    s.alive[:n] = True
-    s.tag = torch.arange(cfg.slots, dtype=torch.int64, device=device)
+    with span("nbody.fill", n=n):
+        r, u_sign, age, life = rng_kernel.flat_fields(fill_draws(cfg, n), 0,
+                                                      device)
+        sign = torch.where(u_sign >= 0.5, 1.0, -1.0)
+        s = zero_state(cfg.slots, device)
+        s.pos[:n] = sign * r * cfg.grid.half_extent
+        s.age[:n] = age
+        s.life[:n] = life
+        s.w[:n] = cfg.weight
+        s.alive[:n] = True
+        s.tag = torch.arange(cfg.slots, dtype=torch.int64, device=device)
     return s
 
 

@@ -104,7 +104,7 @@ class DistributedNBodySimulation:
         self.mesh = mesh if mesh is not None else default_mesh(
             spec.mesh_shape, spec.mesh_axes, group)
         self.device = rank_device(device)
-        self.timers = PhaseTimers()
+        self.timers = PhaseTimers("sharded_nbody.")
         self.frame = 0
         self.last_stats = None
         self.n_degraded_frames = 0
@@ -402,8 +402,7 @@ class DistributedNBodySimulation:
         run_k(k1)  # the frame's eager run and capture, if it has none yet
         ms = slope_ms(run_k, k1, k2, max(1, reps), self.device)
         restore()
-        self.timers.totals["frame/full_frame"] += ms / 1e3
-        self.timers.counts["frame/full_frame"] += 1
+        self.timers.add("frame/full_frame", ms / 1e3)
         return {"full_frame": ms}
 
     # -- buffer sizing --------------------------------------------------------

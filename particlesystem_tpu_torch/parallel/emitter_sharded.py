@@ -61,7 +61,7 @@ class ShardedEmitterEngine:
         self.d = mesh.size
         self.index = mesh.axis_index(self.axis)
         self.cfg = cfg
-        self.timers = PhaseTimers()
+        self.timers = PhaseTimers("sharded_emitter.")
         self.local = PackedEngine(_local_cfg(cfg, self.d), alloc=alloc,
                                   refresh_interval=refresh_interval,
                                   layout=layout, device=rank_device(device),

@@ -73,6 +73,7 @@ from ..ops.neighbor import as_f32
 from ..ops.physics_kernel import physics_step
 from ..utils.device import resolve_device
 from ..utils.frame_graph import FrameGraphs
+from ..utils.timers import span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -324,11 +325,13 @@ class PackedEngine:
     def step_many(self, s: EngineState, k: int) -> EngineState:
         """``k`` frames queued back to back, with no host synchronisation:
         ``k`` graph replays on a card."""
-        st = self._enter(s)
-        for _ in range(k):
-            refresh = self._refreshes(st.frame)
-            self.graphs.step(refresh, lambda: self._static_frame(refresh))
-            st.frame += 1
+        with span("engine.batch", n=k):
+            st = self._enter(s)
+            for _ in range(k):
+                refresh = self._refreshes(st.frame)
+                self.graphs.step(refresh,
+                                 lambda: self._static_frame(refresh))
+                st.frame += 1
         return st
 
     def flat_fields(self, s: EngineState) -> Tuple[torch.Tensor, ...]:

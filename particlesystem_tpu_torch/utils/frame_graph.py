@@ -31,6 +31,8 @@ from typing import Callable, Dict, Hashable, List
 
 import torch
 
+from .timers import span
+
 _records: List[Dict[object, int]] = []
 
 
@@ -91,12 +93,14 @@ class FrameGraphs:
     def step(self, key: Hashable, fn: Callable[[], None]) -> None:
         g = self._graphs.get(key)
         if g is None:
-            fn()  # on a card the warm-up, and a real frame
+            with span("graphs.eager"):
+                fn()  # on a card the warm-up, and a real frame
             self.eager_frames += 1
-            # the CPU keeps the key, with no graph
-            self._graphs[key] = (self._capture(fn)
-                                 if self.device.type == "cuda"
-                                 else _Graph(None, {}))
+            if self.device.type == "cuda":
+                with span("graphs.capture"):
+                    self._graphs[key] = self._capture(fn)
+            else:  # the CPU keeps the key, with no graph
+                self._graphs[key] = _Graph(None, {})
             return
         if g.graph is None:
             fn()
