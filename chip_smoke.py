@@ -34,7 +34,12 @@ Phases (any failure raises and exits non-zero):
    1e-5 of max(1, max|acc|), two launches bit-identical, a subset of blocks
    in another order equal to the whole pass's rows; ``prepare`` on the card
    equals ``prepare`` on the CPU; then a synthetic frame with a chunk of
-   kids only, a block of kids only and blocks of dead rows;
+   kids only, a block of kids only and blocks of dead rows; then, after
+   phase 4, the same on phase 4's plateau state (frame 20 on the prefix,
+   a few in-band rows a live block, walked by warp groups) and at frame 0
+   (every block full, walked as before), each whole-frame pass timed
+   through the wrapper and in a CUDA graph beside the kernel's walk
+   counters;
 3. 12 frames of the port on the card against the port on the CPU (plain
    version): every stat and the alive/parent masks exact, floats by the
    chaotic-trajectory rule of tests/test_nbody_parity.py;
@@ -605,6 +610,50 @@ def phase_kernel_vs_plain(dev):
     return worst
 
 
+def phase_pair_frames(dev, plateau_state, plateau_frame: int) -> float:
+    """Phase 2 on phase 4's states: the kernel against its plain version
+    (:func:`compare_kernel`) on the plateau state (frame
+    ``plateau_frame`` on the prefix: a few in-band rows a live block, so
+    the kernel walks them by warp groups) and on frame 0 (every particle an
+    adult: every block walked as before), the walk counters read around
+    each, and the whole-frame pass timed through the wrapper and in a CUDA
+    graph.  Returns the largest ``acc`` difference."""
+    from particlesystem_tpu_torch import NBodyConfig
+    from particlesystem_tpu_torch.models import nbody
+    from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
+    from particlesystem_tpu_torch.tools.sweep_pair_kernel import frame_inputs
+
+    cfg = NBodyConfig()
+    states = ((f"plateau (frame {plateau_frame}, {plateau_state.slots} "
+               f"rows)", plateau_state),
+              (f"adult-heavy (frame 0, {cfg.slots} rows)",
+               nbody.init_fill(cfg, dev)))
+    worst = 0.0
+    for name, st in states:
+        snap, chunks = frame_inputs(cfg, st)[:2]
+        live = int((snap.f[3].view(-1, nbk.B) >= 0).any(dim=1).sum())
+        before = nbk.walk_counts(dev)
+        with counts_kept():
+            err = compare_kernel(cfg, snap, chunks, nbk.B, nbk.CH)
+            after = nbk.walk_counts(dev)
+            whole = lambda: nbk.cluster_pair_cuda(cfg, snap, chunks, nbk.B,
+                                                  nbk.CH)
+            wrapper_ms, in_graph_ms = cuda_ms(whole, 10), graph_ms(whole, 10)
+        assert after["passes"] - before["passes"] == 2, (before, after)
+        sparse = (after["sparse_blocks"] - before["sparse_blocks"]) // 2
+        assert 0 <= sparse <= live
+        assert sparse > 0 or st is not plateau_state, \
+            "no block of the plateau was walked by warp groups"
+        worst = max(worst, err)
+        print(f"phase 2: {name}: {live} live blocks of {chunks.shape[0]}, "
+              f"{sparse} of them sparse (walked by warp groups): gmax "
+              f"exact, acc max abs err {err:.3e}, two launches "
+              f"bit-identical; whole frame {wrapper_ms:.4f} ms through the "
+              f"wrapper, {in_graph_ms:.4f} in a CUDA graph")
+        del snap, chunks
+    return worst
+
+
 def phase_card_vs_cpu(dev):
     import numpy as np
     from particlesystem_tpu_torch import GridSpec, NBodyConfig
@@ -760,6 +809,7 @@ FRAME_KERNEL_FUNCTIONS = ("nbody_cells", "cell_starts", "block_prepare",
                           "nbody_lifecycle", "spawn_rank", "spawn_write")
 #: the hand-written kernels an n-body frame launches once each
 NBODY_FRAME_FUNCTIONS = FRAME_KERNEL_FUNCTIONS + ("cluster_pair_kernel",
+                                                  "cluster_pair_kernel_sparse",
                                                   "nbody_frame_fields")
 
 
@@ -3911,6 +3961,8 @@ def main() -> int:
     worst = phase_kernel_vs_plain(dev)
     phase_card_vs_cpu(dev)
     sim, main_path = phase_main_path(dev)
+    worst = max(worst, phase_pair_frames(dev, main_path["plateau_state"],
+                                         main_path["plateau_frame"]))
     physics_err = phase_physics_vs_plain(dev)
     phase_engine_card_vs_cpu(dev)
     emitter = phase_emitter_main_path(dev)

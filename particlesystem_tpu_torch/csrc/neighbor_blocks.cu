@@ -31,9 +31,10 @@
 //   order, into its own region of a tile: only in-range, in-band columns,
 //   two float4 a column (x, y, z, w and i1, i2, i3, gid as bits) and cgid
 //   apart.  Regions are walked in warp order, so every row's sum runs in
-//   ascending column order whatever was dropped: the result does not depend
-//   on the culling, nor on the run.  Because a warp reads only what it
-//   fetched itself, one __syncthreads() a piece is enough (two tiles).
+//   ascending column order whatever was dropped (within a warp group's
+//   regions, below): the result does not depend on the culling, nor on the
+//   run.  Because a warp reads only what it fetched itself, one
+//   __syncthreads() a piece is enough (two tiles).
 //   The compaction goes through registers, so TMA's tile copies have no
 //   use here.
 // * The sort: kept columns are still sorted by cell, so staging cuts each
@@ -54,6 +55,31 @@
 //   order (dx*dx + dy*dy) + dz*dz, so no FMA contraction can move a pair
 //   across the contact radius: gmax, kill and touch agree exactly with the
 //   plain version.
+//
+// What bounds it on sparse frames.  In a run's plateau (frame 20 of a 1M
+// run, the 786,432-row prefix) 572 of 1,536 blocks hold an in-band row, 12
+// a block on average (54 at most), and each lists ~7,000 columns, ~33
+// pieces.  572 CTAs fill the card's slots (4 CTAs of 256 threads an SM),
+// but in each the one or two warps that hold its rows walk every piece's
+// kept columns while the other warps wait at the next piece's barrier:
+// the walk of those warps, piece after piece, sets the frame's time.
+//
+// What the design does about it: warp groups.  A block whose in-band rows
+// need at most half the CTA's warps is sparse: its warps form G groups
+// (warp_groups), each holding every in-band row and walking only its own
+// warps' regions of every piece, and the groups' partial sums are added in
+// group order.  A sparse block is walked by a kernel of its own,
+// cluster_pair_kernel_sparse, so that the dense walk (cluster_pair_kernel:
+// one group, as before) keeps its registers and its 4 CTAs an SM.  Both
+// run on one CTA a block: the dense kernel writes the out-of-band rows and
+// leaves a sparse block, the sparse kernel leaves every other block.  A
+// row's sum is fixed by the state alone (no float atomics, the same bits
+// on every run); a dense block sums in ascending column order, bit for bit
+// as before.  The sparse kernel counts the passes and the sparse blocks it
+// walks (read by ps_cluster_pair_counts).
+// Cutting a live block's chunk slots across CTAs would pay only where the
+// live blocks cannot fill the card's slots (fewer than 4 x 132 = 528); the
+// plateau frames above hold 492-2,048.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -69,11 +95,14 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr float MIN_NORMAL_EPS2 = 1e-20f;
 
 // One piece of a block's listed columns: raw columns [start, start + TW) of
-// chunk slot j, whose valid columns are [first, last).
+// chunk slot j, whose valid columns are [first, last).  Columns are int32,
+// as the chunk table's are (the entry point takes ld <= INT_MAX - TW).
 struct Piece {
-    int j;
-    long long start, first, last;
+    int j, start, first, last;
 };
+
+// pair passes, sparse blocks walked (the sparse kernel's)
+__device__ unsigned long long walk_counts[2];
 
 // Moves p to the first piece of the first non-empty chunk at or after p.j.
 __device__ __forceinline__ bool seek_chunk(const int4* ct, int nact, Piece& p)
@@ -81,9 +110,9 @@ __device__ __forceinline__ bool seek_chunk(const int4* ct, int nact, Piece& p)
     for (; p.j < nact; ++p.j) {
         const int4 c = __ldg(ct + p.j);      // aligned_start, lo, hi, n_active
         if (c.z > c.y) {
-            p.first = (long long)c.x + c.y;
-            p.last = (long long)c.x + c.z;
-            p.start = p.first & ~3LL;        // 16-byte aligned fetches
+            p.first = c.x + c.y;
+            p.last = c.x + c.z;
+            p.start = p.first & ~3;          // 16-byte aligned fetches
             return true;
         }
     }
@@ -171,9 +200,28 @@ __device__ __forceinline__ void walk_columns(
     }
 }
 
-template <int ROWS, bool NORMAL>
-__global__ void __launch_bounds__(ROWS == WIDE ? 32 * MAX_WARPS : 32 * WIDE)
-cluster_pair_kernel(
+// The warp groups of a walk CTA of nw warps, ROWS rows a thread at most, for
+// a block with nr rows in band: G groups of nw / G warps, each holding
+// every in-band row and walking its own warps' regions of every piece.  G
+// is the largest power of two whose groups can still hold the rows (and
+// whose partial sums fit the tiles for the combine); 1 where the rows need
+// every warp.  A block with G > 1 is sparse and takes the sparse walk.
+__device__ __forceinline__ int warp_groups(int nr, int rows, int nw)
+{
+    const int row_warps = ((nr + rows - 1) / rows + 31) / 32;
+    int G = 1;
+    while (2 * G * row_warps <= nw && 2 * G * nr <= 2 * TW) G <<= 1;
+    return G;
+}
+
+// The walk of one block a CTA (blocks[k], or block k, written to output
+// rows [k*b, (k+1)*b)): the dense kernel's (one group, the rows handed to
+// every warp; it writes the out-of-band rows of every block and leaves a
+// sparse one) and the sparse kernel's (warp groups; it leaves every block
+// that is not sparse), two kernels so that the dense walk keeps its
+// registers to itself.
+template <int ROWS, bool NORMAL, bool SPARSE>
+__device__ __forceinline__ void walk_block(
     const float* __restrict__ fsnap,   // (7, ld): x, y, z, i1, i2, i3, w
     const int* __restrict__ isnap,     // (2, ld): gid, cgid
     long long ld,
@@ -194,6 +242,7 @@ cluster_pair_kernel(
     __shared__ int4 groups[2][TW];
     __shared__ int tile_n[2][MAX_WARPS];   // groups in each warp's region
     __shared__ int row_n[MAX_WARPS];
+    __shared__ int groups_of[3];       // warps a group, G, in-band rows
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int nthr = blockDim.x, nw = nthr >> 5;
@@ -215,7 +264,7 @@ cluster_pair_kernel(
         const unsigned m = __ballot_sync(FULL, keep);
         if (keep) {
             row_list[rbeg + kept + __popc(m & below)] = r;
-        } else if (in) {               // kid, dead or overflow: no partner
+        } else if (in && !SPARSE) {    // kid, dead or overflow: no partner
             acc[out0 + r] = 0.f;
             acc[acc_ld + out0 + r] = 0.f;
             acc[2 * acc_ld + out0 + r] = 0.f;
@@ -227,11 +276,29 @@ cluster_pair_kernel(
     __syncthreads();
     int nr = 0;
     for (int w = 0; w < nw; ++w) nr += row_n[w];
-    if (nr == 0) return;
+    if (SPARSE && blockIdx.x == 0 && tid == 0) atomicAdd(walk_counts, 1ULL);
+    // a block with no row in band is done; a sparse block is the sparse
+    // kernel's, every other block the dense kernel's
+    if (nr == 0 || (warp_groups(nr, ROWS, nw) > 1) != SPARSE) return;
 
-    // thread t takes in-band rows [t * rpt, (t + 1) * rpt): a warp's rows
-    // are consecutive sorted rows, so their box of cells is small
-    const int rpt = (nr + nthr - 1) / nthr;        // <= ROWS
+    // warp groups: where the in-band rows need few warps, the CTA's warps
+    // form G groups (a power of two; 1 where the rows need every warp), each
+    // holding every in-band row and walking its own warps' regions of every
+    // piece; the groups' partial sums are added in group order at the end
+    const int G = SPARSE ? warp_groups(nr, ROWS, nw) : 1;
+    const int wpg = nw / G;                        // warps a group
+    const int grp = warp / wpg;
+    const int gtid = tid - grp * wpg * 32;         // the thread in its group
+    if (SPARSE && tid == 0) {          // read again, not held in registers
+        atomicAdd(walk_counts + 1, 1ULL);
+        groups_of[0] = wpg;
+        groups_of[1] = G;
+        groups_of[2] = nr;
+    }
+
+    // thread t of a group takes in-band rows [t * rpt, (t + 1) * rpt): a
+    // warp's rows are consecutive sorted rows, so their box of cells is small
+    const int rpt = (nr + wpg * 32 - 1) / (wpg * 32);  // <= ROWS
     float mx[ROWS], my[ROWS], mz[ROWS], m1[ROWS], m2[ROWS], m3[ROWS];
     float ax[ROWS], ay[ROWS], az[ROWS];
     int mg[ROWS], gm[ROWS], mrow[ROWS];
@@ -239,7 +306,7 @@ cluster_pair_kernel(
     int hi1 = INT_MIN, hi2 = INT_MIN, hi3 = INT_MIN;
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-        const int k = tid * rpt + r;
+        const int k = gtid * rpt + r;
         mx[r] = my[r] = mz[r] = m2[r] = m3[r] = 0.f;
         m1[r] = 3e38f;                 // no row: one cell from no column
         ax[r] = ay[r] = az[r] = 0.f;
@@ -292,7 +359,7 @@ cluster_pair_kernel(
         for (int q = lane; q < 9 * units; q += 32) {
             const int field = q / units;
             const int c = sbeg + 4 * (q - field * units);
-            const long long col = p.start + c;
+            const int col = p.start + c;
             if (col < p.last) {
                 const float* src = field < 7
                     ? fsnap + field * ld + col
@@ -316,7 +383,7 @@ cluster_pair_kernel(
         int n = 0;
         for (int i = 0; i < seg; i += 32) {
             const int c = sbeg + i + lane;
-            const long long col = cur.start + c;
+            const int col = cur.start + c;
             const bool keep = i + lane < seg && col >= cur.first
                               && col < cur.last && raw[3][c] >= 0.f;
             const unsigned m = __ballot_sync(FULL, keep);
@@ -366,7 +433,10 @@ cluster_pair_kernel(
         __syncthreads();
         if (!walks) continue;
 
-        for (int w = 0; w < nw; ++w) {
+        // the group's warps' regions (every warp's, in the dense walk)
+        const int w0 = SPARSE ? warp & ~(groups_of[0] - 1) : 0;
+        const int w1 = SPARSE ? w0 + groups_of[0] : nw;
+        for (int w = w0; w < w1; ++w) {
             const int wn = tile_n[buf][w];
             for (int g = 0; g < wn; ++g) {
                 const int4 cell = groups[buf][w * seg + g];
@@ -387,6 +457,42 @@ cluster_pair_kernel(
         }
     }
 
+    if (SPARSE) {
+        // the groups' partial sums of each row, added in group order, into
+        // the first group's threads; the tiles are free once every walk is
+        const int ng = groups_of[1], nin = groups_of[2];
+        const int gw = groups_of[0] * 32;          // threads a group
+        const int gi = tid / gw;                   // this thread's group
+        const int kt = (tid - gi * gw) * ((nin + gw - 1) / gw);
+        float4* gacc = &tile_p[0][0];              // G * nr <= 2 * TW
+        int* ggmax = &tile_c[0][0];
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+            if (mrow[r] < 0) continue;
+            const int k = gi * nin + kt + r;
+            gacc[k] = make_float4(ax[r], ay[r], az[r], 0.f);
+            ggmax[k] = gm[r];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+            if (mrow[r] < 0) continue;
+            if (gi != 0) {
+                mrow[r] = -1;
+                continue;
+            }
+            const int k = kt + r;
+            for (int q = 1; q < ng; ++q) {
+                const float4 s = gacc[q * nin + k];
+                ax[r] += s.x;
+                ay[r] += s.y;
+                az[r] += s.z;
+                gm[r] = max(gm[r], ggmax[q * nin + k]);
+            }
+        }
+    }
+
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
         if (mrow[r] < 0) continue;
@@ -398,19 +504,53 @@ cluster_pair_kernel(
     }
 }
 
+#define WALK_PARAMS                                                          \
+    const float* __restrict__ fsnap, const int* __restrict__ isnap,          \
+    long long ld, const int* __restrict__ chunks,                            \
+    const int* __restrict__ blocks, int b, int c_max, float eps2, float r2,  \
+    float* __restrict__ acc, long long acc_ld, int* __restrict__ gmax_out
+#define WALK_ARGS                                                            \
+    fsnap, isnap, ld, chunks, blocks, b, c_max, eps2, r2, acc, acc_ld, gmax_out
+
+template <int ROWS, bool NORMAL>
+__global__ void __launch_bounds__(ROWS == WIDE ? 32 * MAX_WARPS : 32 * WIDE)
+cluster_pair_kernel(WALK_PARAMS)
+{
+    walk_block<ROWS, NORMAL, false>(WALK_ARGS);
+}
+
+template <int ROWS, bool NORMAL>
+__global__ void __launch_bounds__(ROWS == WIDE ? 32 * MAX_WARPS : 32 * WIDE)
+cluster_pair_kernel_sparse(WALK_PARAMS)
+{
+    walk_block<ROWS, NORMAL, true>(WALK_ARGS);
+}
+
 }  // namespace
+
+// The walk counters of the current device (pair passes, sparse blocks
+// walked by warp groups) into out[0..1], after the stream's work.
+extern "C" int ps_cluster_pair_counts(long long* out, void* stream)
+{
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t e = cudaMemcpyFromSymbolAsync(
+        out, walk_counts, sizeof(walk_counts), 0, cudaMemcpyDeviceToHost, s);
+    if (e == cudaSuccess) e = cudaStreamSynchronize(s);
+    return (int)e;
+}
 
 // C entry point, bound with ctypes.  Rows of block blocks[k] (or block k
 // when blocks is null) are written to output rows [k*b, (k+1)*b).  fsnap,
-// isnap and chunks are 16-byte aligned and ld is a multiple of 4.  Returns
-// the CUDA error of the launch (0 on success).
+// isnap and chunks are 16-byte aligned and ld is a multiple of 4.  The
+// dense and the sparse walks, one CTA a block each.  Returns the CUDA
+// error of the launches (0 on success).
 extern "C" int ps_cluster_pair(
     const float* fsnap, const int* isnap, long long ld, const int* chunks,
     const int* blocks, int n_blocks, int b, int c_max, float eps2, float r2,
     float* acc, long long acc_ld, int* gmax, void* stream)
 {
     if (b <= 0 || b > MAX_B || b > WIDE * 32 * MAX_WARPS || (ld & 3)
-            || n_blocks < 0)
+            || ld > INT_MAX - TW || n_blocks < 0)
         return (int)cudaErrorInvalidValue;
     if (n_blocks == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -420,12 +560,21 @@ extern "C" int ps_cluster_pair(
     int threads = 32;
     while (threads * rows < b) threads <<= 1;
     const bool normal = eps2 >= MIN_NORMAL_EPS2;
-    auto kernel = rows == WIDE
+    auto dense = rows == WIDE
         ? (normal ? cluster_pair_kernel<WIDE, true>
                   : cluster_pair_kernel<WIDE, false>)
         : (normal ? cluster_pair_kernel<1, true>
                   : cluster_pair_kernel<1, false>);
-    kernel<<<n_blocks, threads, 0, s>>>(fsnap, isnap, ld, chunks, blocks, b,
-                                        c_max, eps2, r2, acc, acc_ld, gmax);
+    auto sparse = rows == WIDE
+        ? (normal ? cluster_pair_kernel_sparse<WIDE, true>
+                  : cluster_pair_kernel_sparse<WIDE, false>)
+        : (normal ? cluster_pair_kernel_sparse<1, true>
+                  : cluster_pair_kernel_sparse<1, false>);
+    dense<<<n_blocks, threads, 0, s>>>(fsnap, isnap, ld, chunks, blocks, b,
+        c_max, eps2, r2, acc, acc_ld, gmax);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    sparse<<<n_blocks, threads, 0, s>>>(fsnap, isnap, ld, chunks, blocks, b,
+        c_max, eps2, r2, acc, acc_ld, gmax);
     return (int)cudaGetLastError();
 }

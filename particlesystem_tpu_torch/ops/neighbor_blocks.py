@@ -48,11 +48,19 @@ my_okey`` and ``touch = gmax > INT32_MIN`` are derived per slot.
 Capacity escapes are reported, never silent: blocks whose stencil needs
 more than ``c_max`` chunks drop the excess, and the count comes back as
 ``n_chunks_dropped`` (surfaced as ``NBodyStats.n_listed_dropped``).
+
+A block whose few in-band rows would leave most of its CTA's warps idle
+(a run's plateau) is walked by groups of warps, each over its own share of
+every piece of the listed columns, their partial sums added in group
+order; so a row's sum is fixed by the state alone.  :func:`walk_counts`
+reads how many blocks the kernel walked so.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
+
+import ctypes
 
 import numpy as np
 import torch
@@ -68,6 +76,8 @@ B = 512        # block rows per kernel CTA
 CH = 1024      # columns per listed chunk
 C_MAX = 48     # chunk slots per block
 PLAIN_PAIRS = 1 << 24  # pair elements per step of the plain version
+#: the kernel's walk counters, in ``walk_counts()``' order
+WALK_COUNTS = ("passes", "sparse_blocks")
 
 
 def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, tags,
@@ -177,10 +187,30 @@ def cluster_pair_plain(cfg: NBodyConfig, snap: Snapshot, chunks, b: int,
     return acc.view(3, nsel * b), gmax.view(nsel * b)
 
 
+def walk_counts(device=None) -> dict:
+    """The kernel's walk counters on a CUDA device (the current one when
+    ``None``), after the work queued on its current stream: pair passes
+    (``passes``) and blocks walked by groups of warps (``sparse_blocks``).
+    Both only grow; take differences.  Syncs: never call it inside a run
+    loop."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    out = (ctypes.c_longlong * len(WALK_COUNTS))()
+    err = launch("ps_cluster_pair_counts", dev, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"cluster-pair counters read failed: CUDA error "
+                           f"{err}")
+    return dict(zip(WALK_COUNTS, out))
+
+
 def cluster_pair_cuda(cfg: NBodyConfig, snap: Snapshot, chunks, b: int,
                       ch: int, blocks=None):
-    """Launch the CUDA cluster-pair kernel (``csrc/neighbor_blocks.cu``);
-    same contract as :func:`cluster_pair_plain`.  ``ch`` is only validated:
+    """Launch the CUDA cluster-pair kernel (``csrc/neighbor_blocks.cu``:
+    the dense and the sparse walks); same contract as
+    :func:`cluster_pair_plain` (``gmax`` exact, ``acc`` within 1e-5 of
+    ``max(1, max|acc|)``; a row's sum in the order the kernel's source
+    sets out, fixed by the state).  ``ch`` is only validated:
     the kernel reads each chunk's valid columns from the chunk table and
     cuts them into pieces of its own width.  Counts its launches in
     ``cluster_pair_cuda.launches``."""

@@ -104,6 +104,9 @@ def load_library() -> ctypes.CDLL:
                    ctypes.c_int, ctypes.c_int, ctypes.c_float,
                    ctypes.c_float, _P, ctypes.c_longlong, _P, _P]
     fn.restype = ctypes.c_int
+    fn = lib.ps_cluster_pair_counts
+    fn.argtypes = [_P, _P]
+    fn.restype = ctypes.c_int
     fn = lib.ps_physics_step
     fn.argtypes = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, _P,
                               ctypes.c_int, ctypes.c_int, _P, _P,
