@@ -200,6 +200,11 @@ Phases (any failure raises and exits non-zero):
     against 120 eager plain frames, bit for bit; each kernel timed through
     its wrapper, in a CUDA graph and with the L2 cleared, beside its plain
     version, its bound and one empty kernel in a graph.
+17. fresh simulations in a loop, the reference's own deployment: 1,000
+    times ``NBodySimulation(NBodyConfig(seed=s)).run(10)`` at full size in
+    this one process, each dropped before the next: the card's reserved
+    memory read every 100 runs ends within 64 MB of its reading at run
+    100, and every frame graph of the process shared one pool.
 
 The frame loops (``NBodySimulation.run``,
 ``PackedEngine.step``/``step_many``, and ``ParticleSystem``, ``bench`` and
@@ -3940,6 +3945,50 @@ def phase_emitter_kernels(dev) -> tuple:
     return rows, max(e1, e2, e3)
 
 
+#: phase 17: fresh full-size runs in one process, the card's reserved
+#: memory read every FRESH_EVERY of them, and how far the last reading may
+#: lie from the first
+FRESH_RUNS = 1000
+FRESH_EVERY = 100
+FRESH_SLACK_BYTES = 64 << 20
+
+
+def phase_fresh_runs(dev, runs: int = FRESH_RUNS, every: int = FRESH_EVERY):
+    """17: the reference's own deployment in a loop: ``runs`` times
+    ``NBodySimulation(NBodyConfig(seed=s)).run(10)`` at full size, each
+    simulation dropped before the next is built (its fill, eager frame,
+    capture, nine replays and compaction, then its frame graph freed).
+    Every frame graph of the process shares one pool
+    (``utils/frame_graph.shared_pool``), so the card's reserved memory,
+    read every ``every`` runs, stays flat: passes when the last reading
+    lies within :data:`FRESH_SLACK_BYTES` of the first (run ``every``'s)
+    and the process made one pool."""
+    import torch
+    from particlesystem_tpu_torch import NBodyConfig
+    from particlesystem_tpu_torch.api import NBodySimulation
+    from particlesystem_tpu_torch.utils import frame_graph
+
+    captures = frame_graph.counters["shared_captures"]
+    readings = []
+    t0 = time.perf_counter()
+    for i in range(1, runs + 1):
+        sim = NBodySimulation(NBodyConfig(seed=(1 << 32) + i), device=dev)
+        sim.run(MAIN_ITERS)       # ends in the batch's readback
+        del sim
+        if i % every == 0:
+            torch.cuda.synchronize(dev)
+            readings.append(torch.cuda.memory_reserved(dev))
+    ms = (time.perf_counter() - t0) * 1e3 / runs
+    pools = frame_graph.counters["pools_created"]
+    captured = frame_graph.counters["shared_captures"] - captures
+    drift = readings[-1] - readings[0]
+    print(f"phase 17: {runs} fresh runs of {MAIN_ITERS} frames, {ms:.3f} ms "
+          f"a run, {captured} captures, pools made {pools}; reserved B at "
+          f"runs {every}..{runs}: {readings}; last - first {drift} B")
+    assert abs(drift) <= FRESH_SLACK_BYTES, readings
+    assert pools == 1 and captured == runs, (pools, captured)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3985,6 +4034,7 @@ def main() -> int:
     frame_rows, frame_err = phase_frame_kernels(
         dev, main_path.pop("plateau_state"), main_path["plateau_frame"])
     emitter_rows, emitter_err = phase_emitter_kernels(dev)
+    phase_fresh_runs(dev)
 
     kernels = [{
         "name": "cluster_pair",

@@ -227,32 +227,33 @@ class NBodySimulation:
     def __init__(self, cfg: NBodyConfig = NBodyConfig(), device="cuda",
                  impl: str = "blocks", active_bucketing: bool = True,
                  adaptive_width: bool = True):
-        if impl not in ("blocks", "dense"):
-            raise ValueError(f"unknown neighbor pass {impl!r}")
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        self.impl = impl
-        self.adaptive_width = adaptive_width and impl == "dense"
-        self.active_bucketing = active_bucketing
-        self.timers = PhaseTimers("nbody.")
-        t0 = time.perf_counter()
-        self.state = nbody.init_fill(cfg, self.device)  # records its span
-        self.timers.add("fill", time.perf_counter() - t0)
-        self.frame = 0
-        self.last_stats = None
-        self.n_degraded_frames = 0  # frames whose neighbor pass truncated
-        self._width = 0  # 0 = full cell_capacity (always exact)
-        self._active = 0  # 0 = full slots
-        # the frame loop's static buffers: the state, the frame on the
-        # device, the guards (max spawns capped, max alive rows beyond the
-        # prefix, chunks dropped, over a batch) and the last frame's stats
-        dev = self.device
-        self.graphs = FrameGraphs(dev)
-        self._static = self.state
-        self._frame_t = torch.zeros((), dtype=torch.int64, device=dev)
-        self._guards = torch.zeros((3,), dtype=torch.int64, device=dev)
-        self._stats = torch.zeros((len(STAT_FIELDS),), dtype=torch.int64,
-                                  device=dev)
+        with span("nbody.init"):  # the fill's span nests inside
+            if impl not in ("blocks", "dense"):
+                raise ValueError(f"unknown neighbor pass {impl!r}")
+            self.cfg = cfg
+            self.device = resolve_device(device)
+            self.impl = impl
+            self.adaptive_width = adaptive_width and impl == "dense"
+            self.active_bucketing = active_bucketing
+            self.timers = PhaseTimers("nbody.")
+            t0 = time.perf_counter()
+            self.state = nbody.init_fill(cfg, self.device)  # records its span
+            self.timers.add("fill", time.perf_counter() - t0)
+            self.frame = 0
+            self.last_stats = None
+            self.n_degraded_frames = 0  # frames whose neighbor pass truncated
+            self._width = 0  # 0 = full cell_capacity (always exact)
+            self._active = 0  # 0 = full slots
+            # the frame loop's static buffers: the state, the frame on the
+            # device, the guards (max spawns capped, max alive rows beyond the
+            # prefix, chunks dropped, over a batch) and the last frame's stats
+            dev = self.device
+            self.graphs = FrameGraphs(dev)
+            self._static = self.state
+            self._frame_t = torch.zeros((), dtype=torch.int64, device=dev)
+            self._guards = torch.zeros((3,), dtype=torch.int64, device=dev)
+            self._stats = torch.zeros((len(STAT_FIELDS),), dtype=torch.int64,
+                                      device=dev)
 
     def _pick_width(self, max_occ: int) -> int:
         """Bucketized list width with 25% headroom over the last observed

@@ -119,7 +119,8 @@ def _step_many():
 
 @pytest.mark.parametrize("call, want", [
     (lambda: nbody.init_fill(CFG, "cpu"), [("nbody.fill", None, 1024)]),
-    (_compaction, [("nbody.fill", None, 500),
+    (_compaction, [("nbody.init", None, None),
+                   ("nbody.fill", "nbody.init", 500),
                    ("graphs.eager", "nbody.enqueue", None),
                    ("nbody.compact", "nbody.guards", ANY)]),
     (_step_many, [("engine.batch", None, 8),
