@@ -149,9 +149,13 @@ Phases (any failure raises and exits non-zero):
     0x80000000 and 0xFFFFFFFF, at frames 0 and 20; the emitter's spawn
     draws at the bench scene's ``SpawnTable.total``, salts 0 and 3;
     ``init_fill``'s four draws at 1M, the frame read from device memory;
-    then each timed beside its bound (the instruction rate: 72
-    instructions a hash, and the keys each block derives), and its SASS
-    counted;
+    the fill kernel (``ps_nbody_fill``, ``init_fill`` on a card) against
+    ``init_fill`` on the CPU at ``NBodyConfig()`` and at a small capacity,
+    each at 0, 1, 4,097, ``n_fill`` and every slot; then each timed beside
+    its bound (the instruction rate: 72 instructions a hash, and the keys
+    each block derives; the fill's bytes), and its SASS counted; the fill
+    also beside the composition it replaced, and traced: one device
+    kernel in each ``nbody.fill`` span;
 14. the frame loops as CUDA graphs against the eager frames: the n-body
     at ``NBodyConfig()`` full width, ``run`` in batches of 10, 2 and 8
     frames (the full-width key, then the prefix's) against 20 frames of
@@ -212,7 +216,8 @@ The frame loops (``NBodySimulation.run``,
 one rank; ``ShardedEmitterEngine.step``/``step_many`` on every rank)
 replay one CUDA graph a frame after a key's eager first frame.  The
 n-body paths draw their random fields through the threefry kernel (once
-a frame, once an ``init_fill``), the emitter engine's frame through its
+a frame) and fill through the fill kernel (once an ``init_fill``), the
+emitter engine's frame through its
 spawn kernel, which hashes what each row uses itself; the launches are
 read beside the other kernels' in phases 4, 6, 7, 9, 10, 11, 12 and 14
 (a replay counts the launches its graph recorded), and phase 6 also
@@ -331,6 +336,7 @@ def _wrappers():
                 probe_affine=probe_two_shapes.probe_affine_cuda,
                 threefry_nbody=rk.nbody_fields_cuda,
                 threefry_flat=rk.flat_fields_cuda,
+                nbody_fill=rk.nbody_fill_cuda,
                 nbody_cells=fk.nbody_cells_cuda,
                 cell_starts=fk.cell_starts_cuda,
                 block_prepare=fk.block_prepare_cuda,
@@ -708,9 +714,9 @@ def phase_main_path(dev):
     sim.run(MAIN_ITERS, verbose=True)
     end.record()
     torch.cuda.synchronize()
-    # the pair kernel, the threefry kernel and A-E: once a frame (the
-    # threefry kernel once more for init_fill)
-    counts = launches(**nbody_frames(2 * MAIN_ITERS, threefry_flat=1))
+    # the pair kernel, the threefry kernel and A-E: once a frame; the fill
+    # kernel once, for init_fill
+    counts = launches(**nbody_frames(2 * MAIN_ITERS, nbody_fill=1))
     n_launch = counts["cluster_pair"]
     ms_frame = start.elapsed_time(end) / MAIN_ITERS
     peak = torch.cuda.max_memory_allocated()
@@ -731,8 +737,8 @@ def phase_main_path(dev):
           f"graph's warm-up frame and capture) on active prefix "
           f"{active_second or cfg.slots} of {cfg.slots} slots; alive "
           f"{n_alive}; kernel launches {n_launch} (pair), "
-          f"{counts['threefry_nbody']} + {counts['threefry_flat']} "
-          f"(threefry: frames, init_fill), "
+          f"{counts['threefry_nbody']} (threefry), {counts['nbody_fill']} "
+          f"(fill), "
           + ", ".join(f"{counts[k]} ({k})" for k in FRAME_KERNELS)
           + f"; peak memory {peak} bytes ({peak / 2**30:.3f} GiB)")
 
@@ -753,8 +759,8 @@ def phase_main_path(dev):
     return sim, dict(launches=n_launch, plateau=plateau, adult=adult,
                      eager_kernels=eager_kernels,
                      err=max(plateau["err"], adult["err"]),
-                     rng_launches=counts["threefry_nbody"]
-                     + counts["threefry_flat"],
+                     rng_launches=counts["threefry_nbody"],
+                     fill_launches=counts["nbody_fill"],
                      frame_launches={k: counts[k] for k in FRAME_KERNELS},
                      plateau_tags=st.tag[:rows].clone(),
                      plateau_state=st.map(lambda a: a[:rows].clone()),
@@ -2284,7 +2290,7 @@ def phase_sharded_ranks(dev):
         wall = time.perf_counter() - t0
         per = frames if dev.type == "cuda" else 0
         want = {k: per if k in kernels else 0 for k in ranks[0][3]}
-        want["threefry_flat"] = int(dev.type == "cuda")  # the rank's fill
+        want["nbody_fill"] = int(dev.type == "cuda")  # the rank's fill
         for rank, (*_, counted, _, graphed) in enumerate(ranks):
             assert counted == want, (name, rank, counted, want)
             assert not graphed, f"{name}: gloo rank {rank} took graphs"
@@ -2524,11 +2530,12 @@ def phase_bench(dev, cut=None):
                  if name.startswith("cap"))
     if dev.type == "cuda":
         assert all(v is not None for v in res.values()), res
-        # the threefry kernel: once a pass, once an init_fill; the
-        # emitter frame's spawn, physics and tail kernels once a frame
+        # the threefry kernel once a pass, the fill kernel once an
+        # init_fill; the emitter frame's spawn, physics and tail kernels
+        # once a frame
         assert (counts["cluster_pair"], counts["threefry_nbody"],
-                counts["threefry_flat"]) == (passes, passes, nbody_stages), (
-                    counts, passes)
+                counts["nbody_fill"], counts["threefry_flat"]) == (
+                    passes, passes, nbody_stages, 0), (counts, passes)
         assert [counts[k] for k in ("emitter_spawn", "physics_step",
                                     "emitter_tail", "emitter_ring")] == [
             frames, frames, frames, 0], (counts, frames)
@@ -2733,8 +2740,8 @@ def threefry_sass() -> dict:
     from particlesystem_tpu_torch.utils.cuda_build import sass_instructions
     out = {}
     for name, instructions in sass_instructions().items():
-        key = next((k for k in ("nbody_frame_fields", "flat_fields")
-                    if k in name), None)
+        key = next((k for k in ("nbody_frame_fields", "flat_fields",
+                                "nbody_fill") if k in name), None)
         if key is not None:
             counts: dict = {}
             for ins in instructions:
@@ -2763,14 +2770,159 @@ def time_threefry(name, kern, plain, hashes, n_bytes):
                 bound_ms=bound, bound_by=by)
 
 
+#: bytes the fill kernel writes a slot: pos, vel, acc 12 each; w, age, life
+#: 4 each; alive, parent 1 each; tag 8
+FILL_BYTES_PER_SLOT = 58
+#: hashes of one filled particle: r and u_sign 3 each, age, life
+FILL_HASHES = 8
+#: hashes of a block's keys: four draws' frame key and split index
+FILL_KEY_HASHES = 8
+#: slots a thread of the fill kernel writes
+FILL_SLOTS = 4
+#: particle counts the fill is held at, beside the configuration's n_fill
+#: and its slots: none, one, and one past a 4,096 boundary
+FILL_COUNTS = (0, 1, 4097)
+#: the small capacity the fill is also held at: no multiple of the
+#: kernel's four slots a thread
+FILL_SMALL_CAPACITY = 4099
+
+
+def fill_cases():
+    """(configuration, particle counts) the fill is held at on the card:
+    ``NBodyConfig()`` and a small capacity, each at two seeds."""
+    from particlesystem_tpu_torch import GridSpec, NBodyConfig
+    out = []
+    for seed in (42, (1 << 33) + 5):
+        for cfg in (NBodyConfig(seed=seed),
+                    NBodyConfig(n_fill=2000, capacity=FILL_SMALL_CAPACITY,
+                                seed=seed, grid=GridSpec(grid_dim=4))):
+            counts = sorted({min(n, cfg.slots) for n in
+                             FILL_COUNTS + (cfg.n_fill, cfg.slots)})
+            out.append((cfg, counts))
+    return out
+
+
+def hold_fill(dev) -> None:
+    """The fill kernel (``init_fill`` on the card) against its plain version
+    on the CPU, every field bit for bit, one launch a fill."""
+    from particlesystem_tpu_torch.core.state import FIELDS
+    from particlesystem_tpu_torch.models import nbody
+    from particlesystem_tpu_torch.ops import rng_kernel as rk
+    import torch
+    for cfg, counts in fill_cases():
+        for n in counts:
+            before = rk.nbody_fill_cuda.launches
+            card = nbody.init_fill(cfg, dev, n)
+            assert rk.nbody_fill_cuda.launches == before + 1, "fill launches"
+            host = nbody.init_fill(cfg, "cpu", n)
+            for f in FIELDS:
+                a, b = getattr(card, f).cpu(), getattr(host, f)
+                assert a.dtype == b.dtype and a.shape == b.shape, f
+                if a.is_floating_point():
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                assert torch.equal(a, b), \
+                    f"fill, seed {cfg.seed}, {cfg.slots} slots, n {n}: {f}"
+        print(f"phase 13: fill kernel == plain (CPU) bit for bit, every "
+              f"field, seed {cfg.seed}, {cfg.slots} slots, n in {counts}; "
+              f"one launch a fill")
+
+
+def fill_span_kernels(dev, cfg, k: int = 4) -> tuple:
+    """(``nbody.fill`` spans, the names of the device operations) of a
+    trace of ``k`` fills, each followed by a sync.  The operations are
+    counted over the whole session, not put down to spans by their stamps:
+    the device's and the host's clocks in a trace can sit milliseconds
+    apart.  A session's first kernels can go missing, so a trace that holds
+    fewer than ``k - 1`` operations is taken again, at most
+    :data:`TRACE_ATTEMPTS` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from particlesystem_tpu_torch.models import nbody
+    cuda = torch.autograd.DeviceType.CUDA
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(k):
+                nbody.init_fill(cfg, dev)
+                torch.cuda.synchronize()
+        events = prof.events()
+        spans = sum(e.name == "nbody.fill" and e.device_type != cuda
+                    for e in events)
+        ops = [e.name for e in events
+               if e.device_type == cuda and e.name != "nbody.fill"]
+        if len(ops) >= k - 1:
+            return spans, ops
+        print(f"trace of {k} fills, attempt {attempt}: {len(ops)} device "
+              f"operations; taken again")
+    raise AssertionError(f"no trace of {k} fills in {TRACE_ATTEMPTS} "
+                         f"attempts")
+
+
+def host_us(fn, reps: int) -> float:
+    """Host microseconds a call of ``fn`` over ``reps`` calls, the card
+    synced before and after (the card's work overlaps the host's)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def time_fill(dev) -> dict:
+    """The fill kernel at ``NBodyConfig()`` (2,097,152 slots, 1,048,576
+    drawn) through the wrapper (``init_fill``), in a CUDA graph and on the
+    host's clock, beside the old composition (``init_fill_plain`` on the
+    card: the threefry kernel and some 20 torch launches) and the bound;
+    then a trace: one device kernel in each ``nbody.fill`` span."""
+    from particlesystem_tpu_torch import NBodyConfig
+    from particlesystem_tpu_torch.models import nbody
+    cfg = NBodyConfig()
+    n = cfg.n_fill
+    kern = lambda: nbody.init_fill(cfg, dev)
+    old = lambda: nbody.init_fill_plain(cfg, dev, n)
+    o1 = cuda_ms(old, 10)
+    k1 = cuda_ms(kern, 20)
+    k2 = cuda_ms(kern, 20)
+    o2 = cuda_ms(old, 10)
+    k_graph = graph_ms(kern, 10)
+    o_graph = graph_ms(old, 10)
+    k_host, o_host = host_us(kern, 50), host_us(old, 20)
+    hashes = FILL_HASHES * n + FILL_KEY_HASHES * threefry_blocks(
+        -(-cfg.slots // FILL_SLOTS))
+    n_bytes = FILL_BYTES_PER_SLOT * cfg.slots
+    bound, by = threefry_bound(hashes, n_bytes)
+    print(f"phase 13: fill kernel, {cfg.slots} slots, {n} drawn: "
+          f"{k1:.5f} / {k2:.5f} ms through the wrapper, {k_graph:.5f} ms in "
+          f"a CUDA graph, {k_host:.1f} us of host a call; the old "
+          f"composition {o1:.5f} / {o2:.5f} ms, {o_graph:.5f} ms in a graph, "
+          f"{o_host:.1f} us of host (old, kernel, kernel, old); {hashes} "
+          f"hashes, {n_bytes} bytes written: bound {bound:.5f} ms ({by}), "
+          f"{bound / min(k1, k2):.1%} of it through the wrapper, "
+          f"{bound / k_graph:.1%} in the graph")
+    spans, ops = fill_span_kernels(dev, cfg, 4)
+    # every operation of the session a fill kernel, at most one a span
+    assert spans == 4 and ops and len(ops) <= spans and all(
+        "nbody_fill" in op for op in ops), (spans, ops)
+    print(f"phase 13: a trace of {spans} nbody.fill spans holds {len(ops)} "
+          f"device operations, each the fill kernel: {ops[0]}")
+    return dict(ms=min(k1, k2), graph_ms=k_graph, plain_ms=min(o1, o2),
+                bound_ms=bound, bound_by=by, host_us=k_host)
+
+
 def phase_threefry(dev, plateau_tags):
     """13: the threefry kernel against its plain version, bit for bit, at
     full width: the n-body fields of ``NBodyConfig()``'s 2,097,152 tags,
     the 10M stage's 20,971,520 and the plateau prefix of phase 4
     (``plateau_tags``), each with the edge tags, at frames 0 and 20; the
     emitter's spawn draws at the bench scene's ``SpawnTable.total``,
-    salts 0 and 3; ``init_fill``'s draws at 1M.  Then each timed beside
-    its bound, and the kernels' SASS read."""
+    salts 0 and 3; ``init_fill``'s draws at 1M; the fill kernel against
+    ``init_fill`` on the CPU (:func:`hold_fill`).  Then each timed beside
+    its bound, and the kernels' SASS read; the fill as :func:`time_fill`."""
     import shutil
 
     import torch
@@ -2817,6 +2969,7 @@ def phase_threefry(dev, plateau_tags):
                              rk.flat_fields_plain(fill, 0, dev), "init_fill"))
     print(f"phase 13: init_fill's four draws at {cfg.n_fill} particles: "
           f"kernel == plain bit for bit")
+    hold_fill(dev)
 
     n = plateau_tags.numel()
     f20 = torch.tensor(20, dtype=torch.int64, device=dev)
@@ -2839,11 +2992,7 @@ def phase_threefry(dev, plateau_tags):
                   lambda: rk.flat_fields_cuda(draws, f20, dev),
                   lambda: rk.flat_fields_plain(draws, 20, dev),
                   *flat_fields_work(11 * total, 9 * total, 2 + 3))
-    # draw keys: the split index folded in, 2 hashes a draw
-    time_threefry(f"init_fill draws, {cfg.n_fill} particles",
-                  lambda: rk.flat_fields_cuda(fill, 0, dev),
-                  lambda: rk.flat_fields_plain(fill, 0, dev),
-                  *flat_fields_work(8 * cfg.n_fill, 8 * cfg.n_fill, 4 * 2))
+    fill_row = time_fill(dev)
     if shutil.which("cuobjdump") or shutil.which("nvcc"):
         for kernel, (count, ops) in threefry_sass().items():
             top = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
@@ -2851,7 +3000,7 @@ def phase_threefry(dev, plateau_tags):
                   + " ".join(f"{op}:{c}" for op, c in top))
     else:
         print("phase 13: sass not read: no cuobjdump on this machine")
-    return dict(err=err, **main)
+    return dict(err=err, fill=fill_row, **main)
 
 
 # ---------------------------------------------------------------------------
@@ -4097,6 +4246,19 @@ def main() -> int:
         "plain_ms": rng["plain_ms"],
         "bound_ms": rng["bound_ms"],
         "bound_by": rng["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "nbody_fill",
+        "route": "cuda",
+        "source": "particlesystem_tpu_torch/csrc/threefry.cu",
+        # XLA's fused draw and writes of the fill: no Pallas kernel there
+        "replaces": "particlesystem_tpu/models/nbody.py:75",
+        "launches": main_path["fill_launches"],
+        "max_abs_err": rng["err"],
+        "ms": rng["fill"]["ms"],
+        "plain_ms": rng["fill"]["plain_ms"],
+        "bound_ms": rng["fill"]["bound_ms"],
+        "bound_by": rng["fill"]["bound_by"],
         "library_ms": None,
     }] + [{
         "name": name,

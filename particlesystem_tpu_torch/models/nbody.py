@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..core import rng
@@ -65,8 +66,7 @@ class NBodyStats:
 def fill_draws(cfg: NBodyConfig, n: int) -> list:
     """:func:`init_fill`'s four draws of ``n`` particles (positions,
     signs, ages, fertility ages) at frame 0: ``split(frame_key(seed, 0,
-    FILL), 4)``, whose key ``i`` is ``fold_in(.., i)``; drawn in one
-    threefry kernel launch on a card (``ops/rng_kernel.py``)."""
+    FILL), 4)``, whose key ``i`` is ``fold_in(.., i)``."""
     fill = rng.FrameKey(cfg.seed, rng.FILL)
     kr, ks, ka, kf = (fill.fold(i) for i in range(4))
     return [rng_kernel.u01(kr, (n, 3)), rng_kernel.u01(ks, (n, 3)),
@@ -76,28 +76,58 @@ def fill_draws(cfg: NBodyConfig, n: int) -> list:
                                cfg.max_fertility_age)]
 
 
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def fill_args(cfg: NBodyConfig, n: int) -> rng_kernel.Fill:
+    """The fill kernel's scalars for :func:`init_fill` of ``n`` particles:
+    :func:`fill_draws`' purpose key and split indices, without building
+    the draws, and the ranges rounded to float32 as torch rounds a Python
+    scalar."""
+    lo_a, lo_f = cfg.min_adult_age, cfg.min_fertility_age
+    return rng_kernel.Fill(
+        key=rng.FrameKey(cfg.seed, rng.FILL).purpose_key, words=(0, 1, 2, 3),
+        n=n, slots=cfg.slots, half_extent=_f32(cfg.grid.half_extent),
+        weight=_f32(cfg.weight),
+        age=(_f32(lo_a), _f32(cfg.max_adult_age - lo_a)),
+        life=(_f32(lo_f), _f32(cfg.max_fertility_age - lo_f)))
+
+
+def init_fill_plain(cfg: NBodyConfig, device, n: int) -> ParticleState:
+    """The fill kernel's plain version: the draws, then the state written
+    field by field (some 20 launches on a card)."""
+    r, u_sign, age, life = rng_kernel.flat_fields(fill_draws(cfg, n), 0,
+                                                  device)
+    sign = torch.where(u_sign >= 0.5, 1.0, -1.0)
+    s = zero_state(cfg.slots, device)
+    s.pos[:n] = sign * r * cfg.grid.half_extent
+    s.age[:n] = age
+    s.life[:n] = life
+    s.w[:n] = cfg.weight
+    s.alive[:n] = True
+    s.tag = torch.arange(cfg.slots, dtype=torch.int64, device=device)
+    return s
+
+
 def init_fill(cfg: NBodyConfig, device, n: int | None = None
               ) -> ParticleState:
     """Uniform initial fill — FILL_PARTICLES
     (``particleSystem.cpp:962-1048``): each coordinate is ``sign * r * range``
     with ``r ~ U[0,1)`` and a fair sign; age uniform adult, fertility age
     uniform.  Slots 0..n-1 are used in draw order.  Bit for bit the JAX
-    package's ``init_fill``."""
+    package's ``init_fill``.  On a card one launch of the fill kernel
+    (``ops/rng_kernel.nbody_fill_cuda``), on the CPU its plain version."""
     n = cfg.n_fill if n is None else n
     if n > cfg.slots:
         raise ValueError(f"n_fill={n} exceeds capacity {cfg.slots}")
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no fill for device {dev}")
     with span("nbody.fill", n=n):
-        r, u_sign, age, life = rng_kernel.flat_fields(fill_draws(cfg, n), 0,
-                                                      device)
-        sign = torch.where(u_sign >= 0.5, 1.0, -1.0)
-        s = zero_state(cfg.slots, device)
-        s.pos[:n] = sign * r * cfg.grid.half_extent
-        s.age[:n] = age
-        s.life[:n] = life
-        s.w[:n] = cfg.weight
-        s.alive[:n] = True
-        s.tag = torch.arange(cfg.slots, dtype=torch.int64, device=device)
-    return s
+        if dev.type == "cuda":
+            return rng_kernel.nbody_fill_cuda(fill_args(cfg, n), dev)
+        return init_fill_plain(cfg, dev, n)
 
 
 def frame_fields(cfg: NBodyConfig, frame, tags: torch.Tensor):

@@ -9,7 +9,8 @@ operations a hash.
 
 Two functions, each a dispatcher: CUDA tensors (or a CUDA ``device``)
 launch the kernel, CPU ones take the plain version, built on
-``core/rng.py``; any other device raises.
+``core/rng.py``; any other device raises.  A third entry point writes a
+whole state rather than fields:
 
 * :func:`nbody_fields` — the n-body frame's per-tag fields (what
   ``models/nbody.frame_fields`` returns): the explosion unit vector under
@@ -19,7 +20,11 @@ launch the kernel, CPU ones take the plain version, built on
 * :func:`flat_fields` — up to four flat draws in one launch, each a
   :class:`Draw`: uniforms (:func:`u01`), ``lo + u*(hi - lo)``
   (:func:`uniform`) or lattice unit vectors (:func:`unit_vectors`); the
-  emitter's spawn rows and ``init_fill`` take theirs here.
+  emitter's spawn rows take theirs here.
+* :func:`nbody_fill_cuda` — ``models/nbody.init_fill`` on a card: a fresh
+  state of every slot in one launch, handed its draws' keys and ranges as
+  scalars (:class:`Fill`); its plain version is
+  ``models/nbody.init_fill_plain``, which the CPU runs.
 
 The frame enters as a 0-dim int64 tensor on the card (a Python int is
 put there first): the kernel reads it from device memory and derives the
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from ..core import rng
+from ..core.state import FIELDS, ParticleState
 from ..utils.frame_graph import count_launch
 from ..utils.cuda_build import launch
 
@@ -252,3 +258,57 @@ def flat_fields(draws, frame, device) -> list:
     if dev.type == "cpu":
         return flat_fields_plain(draws, frame, dev)
     raise ValueError(f"no threefry kernel for device {dev}")
+
+
+# --- a fresh n-body state -------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Fill:
+    """What ``ps_nbody_fill`` is handed for a state of ``slots`` slots, the
+    first ``n`` drawn at frame 0 (the kernel's constant): the purpose key,
+    the word each of the four draws (r, u_sign, age, life) folds in after
+    the frame, and float32 values: the box's half extent, the weight, and
+    ``(lo, hi - lo)`` of the age and of the fertility age."""
+
+    key: tuple
+    words: tuple
+    n: int
+    slots: int
+    half_extent: float
+    weight: float
+    age: tuple
+    life: tuple
+
+
+def nbody_fill_cuda(fill: Fill, device) -> ParticleState:
+    """Launch ``ps_nbody_fill`` on the current stream into nine tensors
+    from ``torch.empty``; counts its launches in
+    ``nbody_fill_cuda.launches``."""
+    dev = _device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"nbody_fill_cuda needs a CUDA device, got {dev}")
+    slots, n = fill.slots, fill.n
+    if not 0 <= n <= slots:
+        raise ValueError(f"{n} particles do not fit {slots} slots")
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    st = ParticleState(
+        pos=empty(slots, 3), vel=empty(slots, 3), acc=empty(slots, 3),
+        w=empty(slots), age=empty(slots), life=empty(slots),
+        alive=empty(slots, dtype=torch.bool),
+        parent=empty(slots, dtype=torch.bool),
+        tag=empty(slots, dtype=torch.int64))
+    if slots:
+        err = launch("ps_nbody_fill", dev,
+                     *(getattr(st, f).data_ptr() for f in FIELDS),
+                     n, slots, *fill.key, *fill.words, fill.half_extent,
+                     fill.weight, *fill.age, *fill.life)
+        if err:
+            raise RuntimeError(f"fill kernel launch failed: CUDA error {err}")
+        count_launch(nbody_fill_cuda)
+    return st
+
+
+nbody_fill_cuda.launches = 0

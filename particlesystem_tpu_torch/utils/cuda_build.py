@@ -156,6 +156,9 @@ def load_library() -> ctypes.CDLL:
     fn = lib.ps_emitter_tail
     fn.argtypes = [_P, _P, i, _P, i, n, _P, _P]
     fn.restype = ctypes.c_int
+    fn = lib.ps_nbody_fill
+    fn.argtypes = [_P] * 9 + [n, n] + [u] * 6 + [f] * 6 + [_P]
+    fn.restype = ctypes.c_int
     return lib
 
 

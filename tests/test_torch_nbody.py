@@ -11,6 +11,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from particlesystem_tpu import GridSpec, NBodyConfig
@@ -68,6 +69,21 @@ def check_frame(port, ref, stats, ref_stats, msg):
                                       err_msg=f"{msg} {f}")
     for f in ("pos", "vel", "age", "life", "w"):
         assert_close_chaotic(port[f], np.asarray(ref[f]), f"{msg} {f}")
+
+
+@pytest.mark.parametrize("n", [0, 1, 1001])
+def test_init_fill_matches_jax_at_the_edge_counts(n):
+    """The CPU fill (the fill kernel's plain version) at no particle, one,
+    and every slot of a capacity that is no multiple of four."""
+    cfg = NBodyConfig(n_fill=700, capacity=1001, seed=11,
+                      grid=GridSpec(grid_dim=4, cell_size=5.0,
+                                    chunk_factor=2))
+    js = jnbody.init_fill(cfg, n)
+    ts = state_to_numpy(tnbody.init_fill(port_cfg(cfg), "cpu", n))
+    for f in FIELDS:
+        want = np.asarray(getattr(js, f))
+        assert ts[f].dtype == want.dtype, f
+        np.testing.assert_array_equal(ts[f], want, err_msg=f)
 
 
 def test_step_matches_jax_blocks_step():
