@@ -51,8 +51,9 @@ Phases (any failure raises and exits non-zero):
    state, nearly every live particle a kid) and the adult-heavy one (frame
    0 of the same config, every particle an adult), kernel vs plain version
    timed on 64 evenly spaced live blocks and the kernel alone on the whole
-   frame, with the pairs inside the stencil, the bound they set, and what
-   testing every listed candidate would cost;
+   frame, with the pairs inside the stencil and the bound they and the
+   live rows set (``benchmark/work.py``'s ``pair_pass`` at
+   ``benchmark/peaks.py``'s peaks, as every bound here);
 5. the physics-step kernel vs its plain version on the card, bit for bit:
    packed8 and slim, without and with the spawn window (cursor at the first
    and the last window), at 10,485,760 slots (bench scene) and at 32,768
@@ -75,9 +76,8 @@ Phases (any failure raises and exits non-zero):
    1024 and 770 (bit for bit); then the tools path, both tools' ``main()``: the
    per-variant table at ``k = 64`` and ``192``, the SASS opcodes that
    survived in the built kernels (``cuobjdump -sass``), and ``SAFE``; from
-   the table, what the pair kernel's cell-delta test costs on the card and
-   a second reckoning of phase 4's whole-frame bound; then each kernel's
-   time beside its plain version, its bound and, for
+   the table, what the pair kernel's cell-delta test costs on the card;
+   then each kernel's time beside its plain version, its bound and, for
    ``probe_affine``, the one PyTorch call that computes it and the parts
    of the wrapper's host time;
 9. the dense pass on the card: from the state after phase 4's 20 frames,
@@ -125,8 +125,8 @@ Phases (any failure raises and exits non-zero):
     spawn has a time limit;
 12. the bench, the entry functions, the launcher and the measuring tools:
     (a) every stage of ``particlesystem_tpu_torch.bench`` at cut counts
-    (``BENCH_CUT``) through ``bench.run``, the launch counts reset before
-    and read after (both kernels launched, the pair kernel once a pass),
+    (``BENCH_CUT``) through ``bench.run``, the launches counted across it
+    (both kernels launched, the pair kernel once a pass),
     the printed JSON line held to its keys with no value null; the first
     and the last pass run in Python of each n-body stage (10,485,760
     particles on 32^3 among them; the sharded stage's one eager frame)
@@ -240,16 +240,11 @@ import subprocess
 import sys
 import time
 
+from benchmark.peaks import FP32_FLOPS, bound_s
+from benchmark.work import emitter_physics, pair_pass
+
 SUBSET_BLOCKS = 64
 MAIN_ITERS = 10
-
-# published peaks of one H100 SXM (dense, no sparsity): device memory rate
-# and float32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-# FP32 instructions the card issues a second, one for every lane: an FFMA
-# counts as one, which is how 67 TFLOP/s comes about
-FP32_LANES_PER_S = FP32_FLOPS / 2
 
 EMIT_SLOTS = 10 * 2 ** 20          # bench.py's 10M scene (BASELINE config 5)
 ENGINE_SLOTS = (1 << 20, EMIT_SLOTS)
@@ -260,25 +255,11 @@ ENGINE_PAIRS = (("exact", "packed8", 1), ("exact", "packed8", 4),
                 ("strided", "slim", 1), ("select", "slim", 1))
 STEP_MANY = (64, 512)
 TRAJ_TOL = 1e-4                    # tests/test_pallas_step.py:94
-# kernels and copies a frame in the traces of phases 4 and 7 before the
-# threefry kernel, when the draws were int64 tensor operations (NVIDIA H100
-# 80GB HBM3, 700 W)
-NBODY_KERNELS_BEFORE = 1179
-ENGINE_KERNELS_BEFORE = 415.8
-# kernels and copies/sets a replayed engine frame (select/packed8) ran
-# before the emitter frame's kernels, the spawn rows eager torch operations
-# around the threefry kernel (phase 7's and 14's traces, the same card)
-ENGINE_REPLAY_BEFORE = (47.0, 2.0)
-# kernels and copies a frame of the n-body in a trace of replays, and in
-# an eager frame's trace, before the frame kernels A-E (the same card)
-NBODY_REPLAY_KERNELS_BEFORE = 469.9
-NBODY_EAGER_KERNELS_BEFORE = 462
-# kernels a replayed n-body frame ran while E was three kernels (phase 14's
-# trace, the same card)
-NBODY_REPLAY_KERNELS_E3 = 25.0
 #: the n-body frame's kernels A-E (csrc/nbody_frame.cu), in frame order
 FRAME_KERNELS = ("nbody_cells", "cell_starts", "block_prepare",
                  "nbody_lifecycle", "nbody_spawn")
+#: their C entry points, under which ``cuda_build.launches()`` counts them
+FRAME_ENTRIES = tuple(f"ps_{k}" for k in FRAME_KERNELS)
 
 
 def card_line() -> str:
@@ -314,49 +295,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def roofline_ms(n_bytes: float, flops: float):
-    """(least milliseconds, what bounds it): the larger of the bytes over
-    the device-memory rate and the operations over the float32 rate."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _wrappers():
-    """{kernel name: the wrapper that counts its launches}."""
-    from particlesystem_tpu_torch.ops import engine_kernels as ek
-    from particlesystem_tpu_torch.ops import frame_kernels as fk
-    from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
-    from particlesystem_tpu_torch.ops import physics_kernel as pk
-    from particlesystem_tpu_torch.ops import rng_kernel as rk
-    from particlesystem_tpu_torch.tools import probe_alu_ops, probe_two_shapes
-    return dict(cluster_pair=nbk.cluster_pair_cuda,
-                physics_step=pk.physics_step_cuda,
-                probe_alu_ops=probe_alu_ops.probe_layers_cuda,
-                probe_affine=probe_two_shapes.probe_affine_cuda,
-                threefry_nbody=rk.nbody_fields_cuda,
-                threefry_flat=rk.flat_fields_cuda,
-                nbody_fill=rk.nbody_fill_cuda,
-                nbody_cells=fk.nbody_cells_cuda,
-                cell_starts=fk.cell_starts_cuda,
-                block_prepare=fk.block_prepare_cuda,
-                nbody_lifecycle=fk.nbody_lifecycle_cuda,
-                nbody_spawn=fk.nbody_spawn_cuda,
-                emitter_spawn=ek.spawn_window_cuda,
-                emitter_ring=ek.ring_write_cuda,
-                emitter_tail=ek.frame_tail_cuda)
-
-
-def reset_launches():
-    for wrapper in _wrappers().values():
-        wrapper.launches = 0
+def bound_ms(flops: float, n_bytes: float):
+    """(least milliseconds, what bounds it) of ``flops`` float32 operations
+    and ``n_bytes`` device-memory bytes: ``benchmark.peaks.bound_s``."""
+    by = "bytes" if bound_s(0, n_bytes) >= bound_s(flops, 0) else "operations"
+    return bound_s(flops, n_bytes) * 1e3, by
 
 
 def nbody_frames(frames: int, **others) -> dict:
-    """The launches of ``frames`` single-device blocks frames: the pair
-    kernel, the threefry kernel and A-E once a frame; ``others`` added."""
-    out = dict(cluster_pair=frames, threefry_nbody=frames,
-               **{k: frames for k in FRAME_KERNELS})
+    """The launches of ``frames`` single-device blocks frames, by C entry
+    point: the pair kernel, the threefry kernel and A-E once a frame;
+    ``others`` added."""
+    out = dict(ps_cluster_pair=frames, ps_nbody_frame_fields=frames,
+               **{k: frames for k in FRAME_ENTRIES})
     for k, v in others.items():
         out[k] = out.get(k, 0) + v
     return out
@@ -364,32 +315,29 @@ def nbody_frames(frames: int, **others) -> dict:
 
 def engine_frames(alloc: str, frames: int) -> dict:
     """The launches of ``frames`` frames of ``PackedEngine.step`` (graph
-    replays and each key's eager first frame): the spawn, physics and
-    tail kernels once a frame, and the ring kernel for ``alloc="ring"``."""
-    out = dict(emitter_spawn=frames, physics_step=frames,
-               emitter_tail=frames)
+    replays and each key's eager first frame), by C entry point: the
+    spawn, physics and tail kernels once a frame, and the ring kernel for
+    ``alloc="ring"``."""
+    out = dict(ps_emitter_spawn=frames, ps_physics_step=frames,
+               ps_emitter_tail=frames)
     if alloc == "ring":
-        out["emitter_ring"] = frames
+        out["ps_emitter_ring"] = frames
     return out
 
 
-@contextlib.contextmanager
-def counts_kept():
-    """Launches made inside (a comparison's) are taken off the counts."""
-    kept = {name: w.launches for name, w in _wrappers().items()}
-    try:
-        yield
-    finally:
-        for name, w in _wrappers().items():
-            w.launches = kept[name]
-
-
-def launches(**expected):
-    """The launch counts since :func:`reset_launches`.  With ``expected``
-    ({kernel: count}, 0 for a kernel not named), asserts them."""
-    counts = {name: w.launches for name, w in _wrappers().items()}
-    if expected:
-        want = {name: expected.get(name, 0) for name in counts}
+def launched(since: dict | None = None, expected: dict | None = None):
+    """{C entry point: launches} since ``since``, an earlier reading of
+    this function (the process's whole when None), the entry points that
+    launched nothing left out: ``cuda_build.launches()``, where a replay
+    counts the kernels its graph recorded.  Given ``expected`` ({entry
+    point: launches}, 0 for one not named), asserts them."""
+    from particlesystem_tpu_torch.utils import cuda_build
+    since = since or {}
+    counts = {k: n - since.get(k, 0)
+              for k, n in cuda_build.launches().items()
+              if n != since.get(k, 0)}
+    if expected is not None:
+        want = {k: n for k, n in expected.items() if n}
         assert counts == want, f"kernel launches {counts}, expected {want}"
     return counts
 
@@ -439,38 +387,20 @@ def compare_kernel(cfg, snap, chunks, b, ch, blocks=None):
     return err
 
 
-def pair_work(cfg, snap, chunks, b, blocks=None):
-    """(candidate pairs, pairs inside the stencil, bytes, flops, bytes of
-    reading every listed column whole) of one kernel call over the listed
-    blocks (all when None).
-
-    The work is counted so that it reads the same whatever implements it:
-    a pair inside the 3x3x3 stencil with another particle costs 27 flops,
-    the 8 of the cell-delta test that admits it (3 sub, 3 mul, 2 add) and
-    the 19 of its gravity term (3 sub, 3 mul, 3 add, one rsqrt, 3 mul,
-    3 fma); a listed pair outside the stencil costs nothing, since a
-    kernel need not look at it.  The bytes follow the same rule: of a listed
-    column or a row with out-of-band cell coordinates the result depends on
-    ``i1`` alone (4 bytes), of an in-band one on all its fields (36 bytes a
-    column, 28 a row); then the chunk table and the outputs.  The last
-    figure, 36 bytes for every listed column and 28 for every row, is what a
-    kernel that stages every listed column reads.  Candidates, the valid
-    columns of each listed chunk times the block's b rows, are what a kernel
-    that tests every listed pair looks at (:func:`brute_force_ms`).  Rows
-    with in-band cell coordinates are counted per cell, and a row's stencil
-    partners are the 27-cell box sum less itself: with no chunk dropped, the
-    chunk table lists every one of them."""
+def stencil_pairs(cfg, snap, b, blocks=None) -> int:
+    """Ordered pairs of distinct in-band rows (live adults) inside each
+    other's 3x3x3 stencil, of the rows of the listed blocks (all when
+    None): the pairs ``benchmark.work.pair_pass`` counts.  Rows are counted
+    per cell from the snapshot, and a row's stencil partners are the
+    27-cell box sum less itself: with no chunk dropped, the chunk table
+    lists every one of them."""
     import torch
     import torch.nn.functional as F
     g = cfg.grid.grid_dim
-    dev = chunks.device
-    blk = (torch.arange(chunks.shape[0], device=dev) if blocks is None
+    dev = snap.f.device
+    n_blocks = snap.f.shape[1] // b
+    blk = (torch.arange(n_blocks, device=dev) if blocks is None
            else blocks.to(torch.int64))
-    ct = chunks[blk].to(torch.int64)
-    listed = torch.arange(ct.shape[1], device=dev) < ct[:, :1, 3]
-    widths = torch.where(listed, ct[..., 2] - ct[..., 1], 0)
-    candidates = int(widths.sum()) * b
-
     ok = snap.f[3] >= 0                       # in-band cell coordinates
     i1, i2, i3 = (snap.f[k].round().to(torch.int64).clamp(0, g - 1)
                   for k in (3, 4, 5))
@@ -482,31 +412,22 @@ def pair_work(cfg, snap, chunks, b, blocks=None):
               for a in range(3) for c in range(3) for e in range(3))
     partners = torch.where(ok, box[i3, i1, i2] - 1, 0)
     rows = (blk[:, None] * b + torch.arange(b, device=dev)).reshape(-1)
-    inside = int(partners[rows].sum())
-
-    flops = 27 * inside
-    n_rows = rows.numel()
-    rows_in_band = int(ok[rows].sum())
-    # listed columns, and the in-band ones among them (a prefix sum over the
-    # sorted columns), each counted once however many blocks list it
-    n = snap.f.shape[1]
-    before = F.pad(torch.cumsum(ok, 0), (1, 0))
-    first, last = ct[..., 0] + ct[..., 1], ct[..., 0] + ct[..., 2]
-    in_band_listed = torch.where(listed, before[last.clamp(0, n)]
-                                 - before[first.clamp(0, n)], 0)
-    columns = min(n, int(widths.sum()))
-    columns_in_band = min(int(ok.sum()), int(in_band_listed.sum()))
-    fixed = 16 * ct.numel() + 16 * n_rows     # chunk table; acc, gmax
-    n_bytes = (4 * columns + 32 * columns_in_band
-               + 4 * n_rows + 24 * rows_in_band + fixed)
-    whole_bytes = 36 * columns + 28 * n_rows + fixed
-    return candidates, inside, n_bytes, flops, whole_bytes
+    return int(partners[rows].sum())
 
 
-def brute_force_ms(candidates: int, inside: int) -> float:
-    """Milliseconds at the float32 peak of testing every candidate: 8 flops
-    each, and 19 more for a pair inside the stencil."""
-    return (8 * candidates + 19 * inside) / FP32_FLOPS * 1e3
+def pair_bound(cfg, snap, b, n_alive: int, blocks=None):
+    """(stencil pairs, live rows, least milliseconds, what bounds it) of
+    one pair pass over the listed blocks (all when None) of a frame of
+    ``n_alive`` live rows, which sort first: the benchmark's work
+    (``work.pair_pass``) at its peaks."""
+    import torch
+    pairs = stencil_pairs(cfg, snap, b, blocks)
+    if blocks is None:
+        rows = n_alive
+    else:
+        first = blocks.to(torch.int64) * b
+        rows = int((n_alive - first).clamp(0, b).sum())
+    return (pairs, rows, *bound_ms(*pair_pass(pairs, rows)))
 
 
 def phase_kernel_vs_plain(dev):
@@ -644,12 +565,11 @@ def phase_pair_frames(dev, plateau_state, plateau_frame: int) -> float:
         snap, chunks = frame_inputs(cfg, st)[:2]
         live = int((snap.f[3].view(-1, nbk.B) >= 0).any(dim=1).sum())
         before = nbk.walk_counts(dev)
-        with counts_kept():
-            err = compare_kernel(cfg, snap, chunks, nbk.B, nbk.CH)
-            after = nbk.walk_counts(dev)
-            whole = lambda: nbk.cluster_pair_cuda(cfg, snap, chunks, nbk.B,
-                                                  nbk.CH)
-            wrapper_ms, in_graph_ms = cuda_ms(whole, 10), graph_ms(whole, 10)
+        err = compare_kernel(cfg, snap, chunks, nbk.B, nbk.CH)
+        after = nbk.walk_counts(dev)
+        whole = lambda: nbk.cluster_pair_cuda(cfg, snap, chunks, nbk.B,
+                                              nbk.CH)
+        wrapper_ms, in_graph_ms = cuda_ms(whole, 10), graph_ms(whole, 10)
         assert after["passes"] - before["passes"] == 2, (before, after)
         sparse = (after["sparse_blocks"] - before["sparse_blocks"]) // 2
         assert 0 <= sparse <= live
@@ -702,7 +622,7 @@ def phase_main_path(dev):
 
     cfg = NBodyConfig()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    base = launched()
     sim = NBodySimulation(cfg, device=dev)
     t0 = time.perf_counter()
     sim.run(MAIN_ITERS, verbose=True)
@@ -716,8 +636,8 @@ def phase_main_path(dev):
     torch.cuda.synchronize()
     # the pair kernel, the threefry kernel and A-E: once a frame; the fill
     # kernel once, for init_fill
-    counts = launches(**nbody_frames(2 * MAIN_ITERS, nbody_fill=1))
-    n_launch = counts["cluster_pair"]
+    counts = launched(base, nbody_frames(2 * MAIN_ITERS, ps_nbody_fill=1))
+    n_launch = counts["ps_cluster_pair"]
     ms_frame = start.elapsed_time(end) / MAIN_ITERS
     peak = torch.cuda.max_memory_allocated()
 
@@ -737,9 +657,9 @@ def phase_main_path(dev):
           f"graph's warm-up frame and capture) on active prefix "
           f"{active_second or cfg.slots} of {cfg.slots} slots; alive "
           f"{n_alive}; kernel launches {n_launch} (pair), "
-          f"{counts['threefry_nbody']} (threefry), {counts['nbody_fill']} "
-          f"(fill), "
-          + ", ".join(f"{counts[k]} ({k})" for k in FRAME_KERNELS)
+          f"{counts['ps_nbody_frame_fields']} (threefry), "
+          f"{counts['ps_nbody_fill']} (fill), "
+          + ", ".join(f"{counts[k]} ({k})" for k in FRAME_ENTRIES)
           + f"; peak memory {peak} bytes ({peak / 2**30:.3f} GiB)")
 
     eager_kernels = profile_nbody_frame(sim)
@@ -759,9 +679,10 @@ def phase_main_path(dev):
     return sim, dict(launches=n_launch, plateau=plateau, adult=adult,
                      eager_kernels=eager_kernels,
                      err=max(plateau["err"], adult["err"]),
-                     rng_launches=counts["threefry_nbody"],
-                     fill_launches=counts["nbody_fill"],
-                     frame_launches={k: counts[k] for k in FRAME_KERNELS},
+                     rng_launches=counts["ps_nbody_frame_fields"],
+                     fill_launches=counts["ps_nbody_fill"],
+                     frame_launches={k: counts[f"ps_{k}"]
+                                     for k in FRAME_KERNELS},
                      plateau_tags=st.tag[:rows].clone(),
                      plateau_state=st.map(lambda a: a[:rows].clone()),
                      plateau_frame=sim.frame)
@@ -782,9 +703,7 @@ def profile_nbody_frame(sim, top: int = 4):
     print(f"phase 4: frame {sim.frame} under torch.profiler: {wall_ms:.3f} ms "
           f"on the host's clock, {device_ms:.3f} ms of device time "
           f"({device_ms / wall_ms:.1%}) in "
-          f"{sum(n for n, _ in by_name.values())} kernels and copies "
-          f"({NBODY_EAGER_KERNELS_BEFORE} before the frame kernels, "
-          f"{NBODY_KERNELS_BEFORE:,} before the threefry kernel); "
+          f"{sum(n for n, _ in by_name.values())} kernels and copies; "
           f"largest: " + "; ".join(
               f"{name[:48]} x{n} {us / 1e3:.3f} ms"
               for name, (n, us) in largest))
@@ -884,26 +803,12 @@ def time_pair_state(name, cfg, snap, chunks, n_alive, dev):
                plain_ms=min(plain_ms, plain_ms2), frame_ms=full_ms)
     for what, sel, t in (("subset", blocks, out["ms"]),
                          ("whole frame", None, full_ms)):
-        cand, inside, nbytes, flops, whole_bytes = pair_work(
-            cfg, snap, chunks, nbk.B, sel)
-        bound, by = roofline_ms(nbytes, flops)
-        brute = brute_force_ms(cand, inside)
-        print(f"phase 4: {name}, {what}: {inside} pairs inside the stencil "
-              f"x 27 = {flops} flops, {nbytes} bytes (i1 alone of an "
-              f"out-of-band column or row); bound {bound:.4f} ms ({by}), "
-              f"{bound / t:.1%} of it")
-        print(f"phase 4: {name}, {what}: reading every listed column whole "
-              f"would move {whole_bytes} bytes, "
-              f"{whole_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at the "
-              f"device-memory rate")
-        print(f"phase 4: {name}, {what}: testing every one of the {cand} "
-              f"candidate pairs would cost {brute:.4f} ms at the float32 "
-              f"peak (8 flops a candidate, 19 more a pair inside)")
+        pairs, rows, bound, by = pair_bound(cfg, snap, nbk.B, n_alive, sel)
+        print(f"phase 4: {name}, {what}: {pairs} pairs inside the stencil, "
+              f"{rows} live rows (benchmark/work.py's pair_pass): bound "
+              f"{bound:.4f} ms ({by}), {bound / t:.1%} of it")
         if sel is not None:
             out.update(bound_ms=bound, bound_by=by)
-        else:
-            out.update(candidates=cand, inside=inside, frame_bound_ms=bound,
-                       frame_bound_by=by, brute_ms=brute)
     return out
 
 
@@ -1006,33 +911,22 @@ def spawn_window(n_fields: int, w: int, n_valid: int, cursor: int, dev,
             torch.tensor(cursor, dtype=torch.int32, device=dev))
 
 
-def physics_work(cfg, fields, window):
-    """(bytes, flops) one physics-step call needs on these inputs.  Every
-    field is read once; a live row writes its six coordinates (and age on
-    packed8), a dead row writes nothing, and a valid window row writes its
-    spawn row instead.  Flops are those of the no-contact path (drag 9,
-    Euler 12, 8 per plane, 10 per sphere, age 1; contacts add more)."""
+def physics_bytes(fields, window) -> int:
+    """Bytes of one physics-step call on these inputs, as the benchmark
+    counts them (``work.emitter_physics``): the live rows the kernel steps
+    (those no valid window row replaces) and the window's valid rows."""
     import torch
-    nf = len(fields)
-    n = fields[0].shape[0]
-    if nf == 7:
-        live = fields[6] > 0
-    else:
-        live = (fields[6] <= fields[7]) & (fields[7] > 0)
-    n_bytes = 4 * nf * n
+    live = (fields[6] > 0 if len(fields) == 7
+            else (fields[6] <= fields[7]) & (fields[7] > 0))
     spawned = torch.zeros_like(live)
+    w = 0
     if window is not None:
-        rows, valid, cursor = window
+        _, valid, cursor = window
         w = valid.shape[0]
         c = int(cursor)
         spawned[c:c + w] = valid
-        n_bytes += rows.numel() * 4 + w + 4
-    n_phys = int((live & ~spawned).sum())
-    n_bytes += 4 * (6 if nf == 7 else 7) * n_phys + 4 * nf * int(
-        spawned.sum())
-    per_row = ((9 if cfg.drag else 0) + 12 + 8 * len(cfg.planes)
-               + 10 * len(cfg.spheres) + (0 if nf == 7 else 1))
-    return n_bytes, per_row * n_phys
+    return emitter_physics(fields[0].shape[0], int((live & ~spawned).sum()),
+                           int(spawned.sum()), w, len(fields))
 
 
 def compare_physics(cfg, host_fields, window, dev):
@@ -1096,7 +990,7 @@ def phase_engine_card_vs_cpu(dev):
         card = PackedEngine(cfg, device=dev, **kw)
         host = PackedEngine(cfg, device="cpu", **kw)
         sc, sh = card.init(init), host.init(init)
-        reset_launches()
+        base = launched()
         nf = card.n_fields
         for frame in range(25):
             sc, sh = card.step(sc), host.step(sh)
@@ -1114,13 +1008,12 @@ def phase_engine_card_vs_cpu(dev):
                 assert (err <= TRAJ_TOL + TRAJ_TOL * np.abs(y)).all(), \
                     f"{alloc}/{layout} frame {frame} field {i}: {err.max()}"
                 worst = max(worst, float(err.max()))
-        counts = launches(**engine_frames(alloc, 25))
+        counts = launched(base, engine_frames(alloc, 25))
         n_alive = int(card.alive_count(sc))
         assert n_alive == int(host.alive_count(sh)) > 0
         print(f"phase 6: {alloc}/{layout} refresh {refresh}: 25 frames card "
               f"== cpu (bookkeeping and alive exact, {n_alive} alive, 25 "
-              f"launches of each kernel: "
-              f"{', '.join(k for k, v in counts.items() if v)})")
+              f"launches of each kernel: {', '.join(counts)})")
     print(f"phase 6: largest field difference {worst:.3e} (limit "
           f"{TRAJ_TOL} + {TRAJ_TOL} * |cpu|)")
     # the spawn rows' random draws: the kernel on the card, the plain
@@ -1177,7 +1070,7 @@ def graph_ms(fn, reps: int, replays: int = 5) -> float:
     by CUDA events (a replay is short enough for one hiccup of the card's
     clocks to double it)."""
     import torch
-    from particlesystem_tpu_torch.utils.frame_graph import recording
+    from particlesystem_tpu_torch.utils.cuda_build import recording
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -1205,7 +1098,7 @@ def phase_emitter_main_path(dev):
 
     # the main path: the scene built through ParticleSystem, full width
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    base = launched()
     ps = bench_system(dev)
     assert ps.config == bench_scene(EMIT_SLOTS)
     t0 = time.perf_counter()
@@ -1218,16 +1111,16 @@ def phase_emitter_main_path(dev):
     ps.step(60)
     end.record()
     torch.cuda.synchronize()
-    counts = launches(**engine_frames("select", 120))
-    main_counts = dict(counts)
+    main_counts = counts = launched(base, engine_frames("select", 120))
     n_alive = check_emitter_state(ps._engine, ps._es, "ParticleSystem")
     assert n_alive == ps.alive_count() > 0
     print(f"phase 7: ParticleSystem {EMIT_SLOTS} slots, select/packed8: "
           f"frames 1-60 {first_s:.3f} s (first call); frames 61-120 "
           f"{start.elapsed_time(end) / 60:.4f} ms/frame; alive {n_alive}; "
-          f"kernel launches {counts['emitter_spawn']} (spawn), "
-          f"{counts['physics_step']} (physics), {counts['emitter_tail']} "
-          f"(tail), {counts['threefry_flat']} (threefry); peak memory "
+          f"kernel launches {counts['ps_emitter_spawn']} (spawn), "
+          f"{counts['ps_physics_step']} (physics), "
+          f"{counts['ps_emitter_tail']} (tail), "
+          f"{counts.get('ps_flat_fields', 0)} (threefry); peak memory "
           f"{torch.cuda.max_memory_allocated()} bytes")
 
     # bench.py:80-119: the engine from an all-alive state; the ring
@@ -1238,7 +1131,7 @@ def phase_emitter_main_path(dev):
         init = full_packed(n, 24)
         for alloc, layout in ENGINE_RUNS:
             torch.cuda.reset_peak_memory_stats()
-            reset_launches()
+            base = launched()
             eng = PackedEngine(cfg, alloc=alloc, layout=layout, device=dev)
             es = eng.init(init)
             es = eng.step_many(es, 8)                    # warm-up
@@ -1251,8 +1144,8 @@ def phase_emitter_main_path(dev):
                 torch.cuda.synchronize()
                 ms[k] = start.elapsed_time(end) / k
                 frames += k
-            counts = launches(**engine_frames(alloc, frames))
-            ring_launches += counts["emitter_ring"]
+            counts = launched(base, engine_frames(alloc, frames))
+            ring_launches += counts.get("ps_emitter_ring", 0)
             n_alive = check_emitter_state(eng, es, f"{n} {alloc}/{layout}")
             assert n_alive == int(eng.alive_count(es)) > 0
             short, long_ = STEP_MANY
@@ -1260,19 +1153,15 @@ def phase_emitter_main_path(dev):
                     f"{ms[short]:.4f} ms/frame over {short} frames, "
                     f"{ms[long_]:.4f} over {long_}; "
                     f"{n / ms[long_] * 1e3:.4e} particle-steps/s; "
-                    f"launches {counts['emitter_spawn']} (spawn), "
-                    f"{counts['physics_step']} (physics), "
-                    f"{counts['emitter_ring']} (ring), "
-                    f"{counts['emitter_tail']} (tail) "
+                    f"launches {counts['ps_emitter_spawn']} (spawn), "
+                    f"{counts['ps_physics_step']} (physics), "
+                    f"{counts.get('ps_emitter_ring', 0)} (ring), "
+                    f"{counts['ps_emitter_tail']} (tail) "
                     f"for {frames} frames; alive {n_alive}; peak memory "
                     f"{torch.cuda.max_memory_allocated()} bytes")
             es, kernels, moves, busy = profile_frames(eng, es, 8)
             line += (f"; profiler: {kernels:.1f} kernels and {moves:.1f} "
-                     f"copies/sets a frame (select/packed8 before the "
-                     f"emitter frame's kernels: {ENGINE_REPLAY_BEFORE[0]} "
-                     f"and {ENGINE_REPLAY_BEFORE[1]}; "
-                     f"{ENGINE_KERNELS_BEFORE} before the threefry "
-                     f"kernel), device busy {busy:.1%}")
+                     f"copies/sets a frame, device busy {busy:.1%}")
             print(line)
             del es, eng
 
@@ -1291,8 +1180,8 @@ def phase_emitter_main_path(dev):
             for windowed in (False, True):
                 window = (spawn_window(len(host), w, 1669, n - w, dev, 26)
                           if windowed else None)
-                n_bytes, flops = physics_work(cfg, fields, window)
-                t_bound, by = roofline_ms(n_bytes, flops)
+                n_bytes = physics_bytes(fields, window)
+                t_bound, by = bound_ms(0, n_bytes)
                 plain = lambda: pk.physics_step_plain(fields, cfg, window)
                 kern = lambda: pk.physics_step_cuda(fields, cfg, window)
                 p1 = cuda_ms(plain, 3)
@@ -1306,15 +1195,17 @@ def phase_emitter_main_path(dev):
                 print(f"phase 7: physics kernel {n} slots {name}: kernel "
                       f"{k1:.4f} / {k2:.4f} ms, plain {p1:.3f} / {p2:.3f} ms "
                       f"(plain, kernel, kernel, plain), kernel {dev_ms:.4f} "
-                      f"ms in a CUDA graph; {n_bytes} bytes, {flops} flops: "
+                      f"ms in a CUDA graph; {n_bytes} bytes "
+                      f"(benchmark/work.py's emitter_physics): "
                       f"bound {t_bound:.4f} ms ({by}), "
                       f"{t_bound / min(k1, k2):.1%} of it by launches, "
                       f"{t_bound / dev_ms:.1%} in the graph")
     main = timings[(EMIT_SLOTS, "packed8 + window")]
-    return dict(launches=120, rng_launches=main_counts["threefry_flat"],
+    return dict(launches=120,
+                rng_launches=main_counts.get("ps_flat_fields", 0),
                 emitter_launches=dict(
-                    emitter_spawn=main_counts["emitter_spawn"],
-                    emitter_tail=main_counts["emitter_tail"],
+                    emitter_spawn=main_counts["ps_emitter_spawn"],
+                    emitter_tail=main_counts["ps_emitter_tail"],
                     emitter_ring=ring_launches), **main)
 
 
@@ -1327,49 +1218,39 @@ PROBE_K = 8
 RSQRT_RTOL = 2e-6                  # MUFU.RSQ: 2 ulp
 
 
-def pair_test_cost(table: str, pair: dict) -> None:
-    """What testing every candidate pair costs the card, from the op costs
-    ``probe_alu_ops`` just measured (``table``, its printed lines) and the
-    plateau frame's candidate pairs of phase 4 (``pair``): the cost that
-    the cluster-pair kernel avoids by dropping out-of-band rows and columns
-    and culling by tile, reckoned a second time.
+def pair_test_cost(table: str) -> None:
+    """What testing one candidate pair costs the card, from the op costs
+    ``probe_alu_ops`` just measured (``table``, its printed lines): the cost
+    that the cluster-pair kernel avoids by dropping out-of-band rows and
+    columns and culling by tile.
 
-    One slot is the time in which the card issues one FP32 operation for
-    every lane at its published peak (67 TFLOP/s = 33.5e12 lanes/s).
-    ``chain16`` issues 16 FFMA + 1 FADD + 2/8 a lane and layer, which gives
-    the slots an FFMA, FADD or FMUL really takes; ``chainmix16`` issues
-    8 FSETP + 4 FFMA + 1 FADD + 2/8 (the SASS printed above), which gives a
-    compare's.  The cell-delta test ``cd2 <= 3.5`` of a candidate is 3 FADD,
-    3 FMUL, 2 FADD and 1 FSETP (the integer ``ng != mg`` goes down another
-    pipe and is not counted).  Phase 4's brute-force reckoning takes its 8
-    float operations at 67 TFLOP/s, as if each were half a fused
-    multiply-add."""
+    One slot is the time in which the card issues one FP32 instruction for
+    every lane at its published peak (an FFMA a lane, two float32
+    operations, ``benchmark.peaks``).  ``chain16`` issues 16 FFMA + 1 FADD
+    + 2/8 a lane and layer, which gives the slots an FFMA, FADD or FMUL
+    really takes; ``chainmix16`` issues 8 FSETP + 4 FFMA + 1 FADD + 2/8
+    (the SASS printed above), which gives a compare's.  The cell-delta
+    test ``cd2 <= 3.5`` of a candidate is 3 FADD, 3 FMUL, 2 FADD and 1
+    FSETP (the integer ``ng != mg`` goes down another pipe and is not
+    counted)."""
     import re
 
     from particlesystem_tpu_torch.tools import probe_alu_ops as pa
     ns = {m[1]: float(m[2]) for m in re.finditer(
         r"^(\w+)\s+([\d.]+) ns/layer", table, flags=re.M)}
-    slot_ns = pa.B * pa.CH / pa.FP32_FMA_LANES_PER_S * 1e9
+    slot_ns = bound_s(2 * pa.B * pa.CH, 0) * 1e9
     arith = ns["chain16"] / slot_ns / 17.25
     compare = (ns["chainmix16"] / slot_ns - 5.25 * arith) / 8
     slots = 8 * arith + compare
-    ms = pair["candidates"] * slots / pa.FP32_FMA_LANES_PER_S * 1e3
     print(f"phase 8: one FP32 operation for every lane of the tile takes "
           f"{slot_ns:.3f} ns at the published peak; measured: an FFMA, FADD "
           f"or FMUL {arith:.3f} slots, an FSETP {compare:.3f} slots; the "
           f"cell-delta test (8 arithmetic operations and a compare) "
           f"{slots:.2f} slots a candidate, against the 4 that 8 flops at "
           f"67 TFLOP/s allow")
-    print(f"phase 8: cluster_pair plateau frame, testing every candidate, "
-          f"second reckoning: {pair['candidates']} candidates x {slots:.2f} "
-          f"slots = {ms:.4f} ms, beside {pair['brute_ms']:.4f} ms by flops; "
-          f"the kernel, which tests the in-band pairs of nearby tiles only, "
-          f"takes {pair['frame_ms']:.4f} ms against its bound of "
-          f"{pair['frame_bound_ms']:.4f} ms ({pair['frame_bound_by']}, "
-          f"{pair['frame_bound_ms'] / pair['frame_ms']:.1%} of it)")
 
 
-def phase_probes(dev, pair):
+def phase_probes(dev):
     import contextlib
     import io
     import shutil
@@ -1410,7 +1291,7 @@ def phase_probes(dev, pair):
               f"for bit")
 
     # the tools path: both main()s, launches counted from here
-    reset_launches()
+    base = launched()
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
         rc = pa.main([])
@@ -1420,8 +1301,8 @@ def phase_probes(dev, pair):
     assert rc == 0 and "chainmix16" in table, "probe_alu_ops.main failed"
     rc = pt.main([])
     assert rc == 0, "probe_two_shapes.main failed"
-    counts = launches(probe_alu_ops=counts_alu_main(pa),
-                      probe_affine=2 * pt.FRAMES)
+    counts = launched(base, dict(ps_probe_alu_ops=counts_alu_main(pa),
+                                 ps_probe_affine=2 * pt.FRAMES))
     if shutil.which("cuobjdump") or shutil.which("nvcc"):
         for v, ops in pa.sass_counts().items():
             top = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
@@ -1429,7 +1310,7 @@ def phase_probes(dev, pair):
                   + " ".join(f"{op}:{n}" for op, n in top))
     else:
         print("phase 8: sass not read: no cuobjdump on this machine")
-    pair_test_cost(table, pair)
+    pair_test_cost(table)
 
     # probe_alu_ops: fma at k = K2, beside the plain version doing the same
     # work (the tile repeated REPS times) and on one tile
@@ -1443,21 +1324,19 @@ def phase_probes(dev, pair):
     del xr
     # the kernel's contract has every layer add t = acc + j * 1e-30 before
     # the variant's operation: an FADD and an FFMA a lane and layer, two
-    # issue slots (three flops, were the FFMA counted as two)
+    # issue slots, each the slot of an FFMA's two float32 operations at the
+    # peak (three flops, were only the FFMA counted as two)
     lanes = pa.B * pa.CH * pa.REPS * pa.K2
-    alu_bytes_ms = 8 * pa.B * pa.CH / HBM_BYTES_PER_S * 1e3
-    alu_slots_ms = 2 * lanes / FP32_LANES_PER_S * 1e3
-    alu_bound, alu_by = max((alu_bytes_ms, "bytes"),
-                            (alu_slots_ms, "operations"))
+    alu_bound, alu_by = bound_ms(2 * 2 * lanes, 8 * pa.B * pa.CH)
     print(f"phase 8: probe_alu_ops fma k={pa.K2}: kernel {k1:.4f} / {k2:.4f} "
           f"ms, plain on {pa.REPS} repeats {p1:.2f} / {p2:.2f} ms (plain, "
           f"kernel, kernel, plain), plain on one tile {p_tile:.3f} ms; "
-          f"{lanes} lane-layers x 2 issue slots (FFMA + FADD) at "
-          f"{FP32_LANES_PER_S:.4g} lanes/s: bound {alu_bound:.4f} ms "
+          f"{lanes} lane-layers x 2 issue slots (FFMA + FADD) at the FP32 "
+          f"issue rate: bound {alu_bound:.4f} ms "
           f"({alu_by}), {alu_bound / min(k1, k2):.1%} of it; by flops "
-          f"(3 a lane-layer at 67 TFLOP/s) "
-          f"{3 * lanes / FP32_FLOPS * 1e3:.4f} ms")
-    alu = dict(launches=counts["probe_alu_ops"], err=worst_alu,
+          f"(3 a lane-layer at {FP32_FLOPS / 1e12:g} TFLOP/s) "
+          f"{bound_s(3 * lanes, 0) * 1e3:.4f} ms")
+    alu = dict(launches=counts["ps_probe_alu_ops"], err=worst_alu,
                ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=alu_bound,
                bound_by=alu_by)
 
@@ -1474,7 +1353,7 @@ def phase_probes(dev, pair):
     k2 = cuda_ms(kern, 200)
     p2, l2 = cuda_ms(plain, 200), cuda_ms(lib, 200)
     g_kern, g_lib = graph_ms(kern, 50), graph_ms(lib, 50)
-    aff_bound, aff_by = roofline_ms(8 * xa.numel(), 2 * xa.numel())
+    aff_bound, aff_by = bound_ms(2 * xa.numel(), 8 * xa.numel())
     print(f"phase 8: probe_affine ({pt.ROWS}, {pt.CAP}): kernel {k1:.5f} / "
           f"{k2:.5f} ms, plain {p1:.5f} / {p2:.5f} ms, torch.add(one, x, "
           f"alpha=2) {l1:.5f} / {l2:.5f} ms; in a CUDA graph kernel "
@@ -1483,7 +1362,8 @@ def phase_probes(dev, pair):
     print("phase 8: probe_affine, the host's microseconds a call: "
           + ", ".join(f"{k} {v:.3f}" for k, v in
                       wrapper_host_us(xa, kern, lib).items()))
-    affine = dict(launches=counts["probe_affine"], err=0.0, ms=min(k1, k2),
+    affine = dict(launches=counts["ps_probe_affine"], err=0.0,
+                  ms=min(k1, k2),
                   plain_ms=min(p1, p2), bound_ms=aff_bound, bound_by=aff_by,
                   library_ms=min(l1, l2))
     return alu, affine
@@ -1556,16 +1436,16 @@ def phase_dense_vs_blocks(sim):
 
     cfg, frame, active = sim.cfg, sim.frame, sim._active
     width = sim._pick_width(int(sim.last_stats.max_cell_occupancy))
-    reset_launches()
+    base = launched()
     blocks, bst = nbody.step(sim.state, frame, cfg, "blocks", active)
-    launches(**nbody_frames(1))
+    launched(base, nbody_frames(1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dense_step = lambda: nbody.step(sim.state, frame, cfg, "dense", active,
                                     width)
     dense, dst = dense_step()
     # the dense pass launches no pair kernel and none of A-E
-    launches(**nbody_frames(1, threefry_nbody=1))
+    launched(base, nbody_frames(1, ps_nbody_frame_fields=1))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     # as in the JAX package, the blocks pass counts a chunk's rows before
@@ -1702,7 +1582,7 @@ def phase_readback(dev):
     rb = ps.enable_readback(depth=3)
     assert rb.ring.frame_bytes == frame_bytes
     assert rb.ring._lib is not None, "the ring fell back to the deque"
-    reset_launches()
+    base = launched()
     kept, checked = {}, 0
     for i in range(n):
         ps.step()
@@ -1715,7 +1595,7 @@ def phase_readback(dev):
         assert torch.equal(torch.from_numpy(got).to(dev), kept.pop(i - 1)), \
             f"popped frame {i - 1} differs from packed()"
         checked += 1
-    launches(**engine_frames("select", n))
+    launched(base, engine_frames("select", n))
     assert (rb.published, rb.dropped) == (n - 1, 0), \
         (rb.published, rb.dropped)
     rb.flush()
@@ -1837,7 +1717,7 @@ def listed_partners(snap, chunks, b, blocks):
     """Pairs of in-band rows of ``blocks`` with an in-band column of their
     chunk table's listed chunks inside the 3x3x3 stencil, the self pair
     left out: with every chunk listed once, the stencil partners that
-    :func:`pair_work` counts from a histogram of the cells."""
+    :func:`stencil_pairs` counts from a histogram of the cells."""
     import torch
     dev = snap.f.device
     ok = snap.f[3] >= 0
@@ -1881,12 +1761,13 @@ def pair_checks(module, at, c_local=None, subset=None):
     spaced live blocks (the first and the last among them); on the
     single-device pass it also checks that the chunk table lists every
     stencil partner of those blocks' rows once (:func:`listed_partners`
-    against :func:`pair_work`'s histogram).  The launches of the check
+    against :func:`stencil_pairs`' histogram).  The launches of the check
     are taken off the counts.  On the CPU, where there is no kernel, only
     the inputs are recorded.  ``c_local`` is the rank's own rows (the rest
     are halo).  Yields the list of records."""
     import torch
     from particlesystem_tpu_torch.ops import neighbor_blocks as nbk
+    from particlesystem_tpu_torch.utils import cuda_build
     single = module is nbk
     hook = "kernel_call" if single else "sort_and_prepare"
     inner = getattr(module, hook)
@@ -1904,12 +1785,13 @@ def pair_checks(module, at, c_local=None, subset=None):
                 blocks = torch.linspace(
                     0, live - 1, subset,
                     device=snap.f.device).round().to(torch.int32)
-            with counts_kept():
+            # the check's launches are not the path's
+            with cuda_build.recording():
                 rec["err"] = compare_kernel(cfg, snap, chunks, nbk.B, nbk.CH,
                                             blocks)
             if dims is None and blocks is not None:
                 got = listed_partners(snap, chunks, nbk.B, blocks)
-                want = pair_work(cfg, snap, chunks, nbk.B, blocks)[1]
+                want = stencil_pairs(cfg, snap, nbk.B, blocks)
                 assert got == want, \
                     f"pass {call}: the chunk table lists {got} " \
                     f"stencil pairs of {subset} blocks, the cells hold " \
@@ -1993,7 +1875,7 @@ def rank_nbody(rank, group, cfg, spec, frames, timed, device):
     from particlesystem_tpu_torch.parallel.driver import (
         DistributedNBodySimulation)
     dev = torch.device(device)
-    reset_launches()
+    base = launched()
     sim = DistributedNBodySimulation(cfg, spec, group=group, device=dev)
     out = []
     with pair_checks(nbody_sharded, (0, frames - 1),
@@ -2003,7 +1885,7 @@ def rank_nbody(rank, group, cfg, spec, frames, timed, device):
             out.append((stats, _alive_rows(state_to_numpy(sim.gather()))))
     assert [r["call"] for r in checks] == [0, frames - 1], checks
     assert all(r["halo"] > 0 and r["in_band"] > 0 for r in checks), checks
-    counted = launches()
+    counted = launched(base)
     graphed = sim.graphs is not None
     staged = sim.mesh.staged_bytes
     if dev.type == "cuda":
@@ -2025,18 +1907,18 @@ def rank_emitter(rank, group, cfg, frames, device):
     physics and spawn-kernel launches, the psum'd alive count and its
     engine's (eager frames, captures, replays)."""
     import torch
-    from particlesystem_tpu_torch.ops import engine_kernels as ek
-    from particlesystem_tpu_torch.ops import physics_kernel as pk
     from particlesystem_tpu_torch.parallel import ShardedEmitterEngine, mesh
     from particlesystem_tpu_torch.runtime.engine import engine_state_to_numpy
-    pk.physics_step_cuda.launches = ek.spawn_window_cuda.launches = 0
+    base = launched()
     eng = ShardedEmitterEngine(cfg, mesh.mesh_1d(group.size(), "x", group),
                                alloc="select", layout="packed8",
                                device=torch.device(device))
     es = eng.step_many(eng.init(), frames)
+    counts = launched(base)
     g = eng.local.graphs
-    return (engine_state_to_numpy(es), (pk.physics_step_cuda.launches,
-                                        ek.spawn_window_cuda.launches),
+    return (engine_state_to_numpy(es),
+            tuple(counts.get(k, 0) for k in ("ps_physics_step",
+                                             "ps_emitter_spawn")),
             eng.alive_count(es), (g.eager_frames, g.captures, g.replays))
 
 
@@ -2116,12 +1998,12 @@ def phase_sharded_one_rank(dev, cfg=None):
         # NCCL on a card captures; gloo (the CPU rehearsal) runs eagerly
         assert (sim.graphs is not None) == on_card, sim.graphs
         start = sim.state.map(lambda a: a.clone())
-        reset_launches()
+        base = launched()
         with pair_checks(nbody_sharded, (0,), cfg.slots,
                          SUBSET_BLOCKS) as checks:
             first = sim.run(SHARDED_ITERS)
         assert [r["call"] for r in checks] == [0], checks
-        first_counts = launches()
+        first_counts = launched(base)
         at10 = sim.state.map(lambda a: a.clone())
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "slab_d1")
@@ -2130,33 +2012,32 @@ def phase_sharded_one_rank(dev, cfg=None):
             save_s = time.perf_counter() - t0
             size = sum(os.path.getsize(os.path.join(path, f))
                        for f in os.listdir(path))
-            reset_launches()
+            base = launched()
             runs = []
             ms_sharded = elapsed_ms(
                 lambda: runs.append(sim.run(SHARDED_ITERS)), dev
             ) / SHARDED_ITERS
             second = runs[0]
-            second_counts = launches()
-            counts = {k: first_counts[k] + second_counts[k]
-                      for k in first_counts}
-            n_launch, n_rng = (counts[k] for k in ("cluster_pair",
-                                                   "threefry_nbody"))
+            second_counts = launched(base)
+            counts = {k: first_counts.get(k, 0) + second_counts.get(k, 0)
+                      for k in {**first_counts, **second_counts}}
+            n_launch, n_rng = (counts.get(k, 0) for k in (
+                "ps_cluster_pair", "ps_nbody_frame_fields"))
             peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
                     else 0)
             # once a frame each, A none (none on the CPU, where the phase
             # is rehearsed small)
-            kernels = ("threefry_nbody", "cluster_pair") + FRAME_KERNELS[1:]
+            kernels = (("ps_nbody_frame_fields", "ps_cluster_pair")
+                       + FRAME_ENTRIES[1:])
             per = 2 * SHARDED_ITERS if on_card else 0
-            assert counts == {k: per if k in kernels else 0
-                              for k in counts}, \
+            assert counts == {k: per for k in kernels if per}, \
                 f"launches in {2 * SHARDED_ITERS} frames: {counts}"
             if on_card:
                 g = sim.graphs
                 assert (g.eager_frames, g.captures, g.replays) == (
                     1, 1, 2 * SHARDED_ITERS - 1), \
                     (g.eager_frames, g.captures, g.replays)
-                names = {w: name for name, w in _wrappers().items()}
-                rec = {names[w]: n for w, n in g.recorded(sim._KEY).items()}
+                rec = g.recorded(sim._KEY)
                 assert rec == {k: 1 for k in kernels}, rec
                 replays = (f"{g.eager_frames} eager frame, {g.captures} "
                            f"capture, {g.replays} replays")
@@ -2280,7 +2161,8 @@ def phase_sharded_ranks(dev):
     out = {}
     # each rank's frames: the threefry kernel, B, C, the pair kernel, D
     # and E once each (A is the cubic grid's: not on this path)
-    kernels = ("threefry_nbody", "cluster_pair") + FRAME_KERNELS[1:]
+    kernels = (("ps_nbody_frame_fields", "ps_cluster_pair")
+               + FRAME_ENTRIES[1:])
     for name, ws, spec, frames in multi_runs():
         t0 = time.perf_counter()
         ranks = spawn(
@@ -2289,13 +2171,14 @@ def phase_sharded_ranks(dev):
         got, ms, staged, _, checks, _ = ranks[0]
         wall = time.perf_counter() - t0
         per = frames if dev.type == "cuda" else 0
-        want = {k: per if k in kernels else 0 for k in ranks[0][3]}
-        want["nbody_fill"] = int(dev.type == "cuda")  # the rank's fill
+        # and the rank's fill (none on the CPU)
+        want = ({k: per for k in kernels} | {"ps_nbody_fill": 1}
+                if per else {})
         for rank, (*_, counted, _, graphed) in enumerate(ranks):
             assert counted == want, (name, rank, counted, want)
             assert not graphed, f"{name}: gloo rank {rank} took graphs"
-        n_launch, n_rng = (ranks[0][3][k] for k in ("cluster_pair",
-                                                     "threefry_nbody"))
+        n_launch, n_rng = (ranks[0][3].get(k, 0) for k in (
+            "ps_cluster_pair", "ps_nbody_frame_fields"))
         ref = single_device_frames(cfg, spec, frames, dev)
         migrated = 0
         for frame, ((stats, (tags, rows)), (rstats, (rtags, rrows))) in \
@@ -2350,14 +2233,15 @@ def phase_sharded_emitter(dev, slots=EMIT_SLOTS, dp_slots=DP_SLOTS):
                                                          engine_state_to_numpy)
 
     cfg = bench_scene(slots)
-    reset_launches()
+    base = launched()
     sharded = ShardedEmitterEngine(cfg, mesh_1d(1), alloc="select",
                                    layout="packed8", device=dev)
     es = sharded.step_many(sharded.init(), DP_FRAMES)
     on_card = dev.type == "cuda"
-    launches(**engine_frames("select", DP_FRAMES if on_card else 0))
-    n_launch, n_rng = (launches()[k] for k in ("physics_step",
-                                               "emitter_spawn"))
+    counts = launched(base, engine_frames("select",
+                                          DP_FRAMES if on_card else 0))
+    n_launch, n_rng = (counts.get(k, 0) for k in ("ps_physics_step",
+                                                  "ps_emitter_spawn"))
     g = sharded.local.graphs
     runs = (g.eager_frames, g.captures, g.replays)
     assert runs == ((1, 1, DP_FRAMES - 1) if on_card
@@ -2442,10 +2326,10 @@ CLI_ARGS = ("nbody", "--devices", "2", "--particles", "2000", "--grid-dim",
 #: the CLI's own ``main``, then this rank's pair-kernel launches
 CLI_MAIN = ("import sys\n"
             "from particlesystem_tpu_torch.__main__ import main\n"
-            "from particlesystem_tpu_torch.ops import neighbor_blocks\n"
+            "from particlesystem_tpu_torch.utils import cuda_build\n"
             "main(sys.argv[1:])\n"
-            "print('pair launches', neighbor_blocks.cluster_pair_cuda."
-            "launches)\n")
+            "print('pair launches', cuda_build.launches()"
+            ".get('ps_cluster_pair', 0))\n")
 
 
 def bench_passes(name: str, kw: dict) -> int:
@@ -2517,10 +2401,10 @@ def phase_bench(dev, cut=None):
     t0 = time.perf_counter()
     out = io.StringIO()
     checks = {}
-    reset_launches()
+    base = launched()
     res = bench.run(bench_stage_fns(dev, cut, checks),
                     card_line() if dev.type == "cuda" else "cpu", out=out)
-    counts = launches()
+    counts = launched(base)
     printed = json.loads(out.getvalue().splitlines()[-1])
     assert printed == res and set(res) == set(bench.empty_line("")), res
     passes = sum(bench_passes(name, kw) for name, kw in cut.items()
@@ -2533,18 +2417,19 @@ def phase_bench(dev, cut=None):
         # the threefry kernel once a pass, the fill kernel once an
         # init_fill; the emitter frame's spawn, physics and tail kernels
         # once a frame
-        assert (counts["cluster_pair"], counts["threefry_nbody"],
-                counts["nbody_fill"], counts["threefry_flat"]) == (
+        n = lambda k: counts.get(k, 0)
+        assert (n("ps_cluster_pair"), n("ps_nbody_frame_fields"),
+                n("ps_nbody_fill"), n("ps_flat_fields")) == (
                     passes, passes, nbody_stages, 0), (counts, passes)
-        assert [counts[k] for k in ("emitter_spawn", "physics_step",
-                                    "emitter_tail", "emitter_ring")] == [
+        assert [n(k) for k in ("ps_emitter_spawn", "ps_physics_step",
+                               "ps_emitter_tail", "ps_emitter_ring")] == [
             frames, frames, frames, 0], (counts, frames)
         # A once a single-device frame; B-E once a pass of either path
         # (the decomposed frame runs all but A)
         single = passes - sum(bench_passes(name, kw)
                               for name, kw in cut.items()
                               if name == "nbody_sharded_d1")
-        assert [counts[k] for k in FRAME_KERNELS] == [
+        assert [n(k) for k in FRAME_ENTRIES] == [
             single, passes, passes, passes, passes], (counts, single)
     err = max([r["err"] or 0.0 for recs in checks.values() for r in recs],
               default=0.0)
@@ -2571,7 +2456,7 @@ def phase_entry(dev):
     fn_cpu, (es_cpu,) = entry(device="cpu")
     es_cpu = engine_state_from_numpy(engine_state_to_numpy(es), es_cpu)
     nf = es.n_fields
-    reset_launches()
+    base = launched()
     err = 0.0
     for frame in range(2):
         es, es_cpu = fn(es), fn_cpu(es_cpu)
@@ -2583,8 +2468,10 @@ def phase_entry(dev):
         for a, b in zip(got[:nf], want[:nf]):
             np.testing.assert_allclose(a, b, rtol=TRAJ_TOL, atol=TRAJ_TOL)
             err = max(err, float(np.abs(a - b).max()))
-    launches(**engine_frames("select", 2 if dev.type == "cuda" else 0))
-    n, n_rng = (launches()[k] for k in ("physics_step", "emitter_spawn"))
+    counts = launched(base, engine_frames("select",
+                                          2 if dev.type == "cuda" else 0))
+    n, n_rng = (counts.get(k, 0) for k in ("ps_physics_step",
+                                           "ps_emitter_spawn"))
     print(f"phase 12b: entry() 2 frames on {dev} == cpu (bookkeeping and "
           f"alive exact, fields within {TRAJ_TOL}: max abs err {err:.3e}), "
           f"alive {int(alive[0].sum())}, physics launches {n}, spawn and "
@@ -2694,11 +2581,12 @@ NBODY_10M_SLOTS = 20 * 2 ** 20
 #: integer instructions of one threefry2x32 hash: an IADD, a SHF and a
 #: LOP3 a round (60), the key injections and the key schedule's parity
 INT_OPS_PER_HASH = 72
-#: instructions the card dispatches a second, one for every lane: four
-#: schedulers an SM dispatch one warp instruction a clock each (128 lanes,
-#: as for FP32); the hash's adds go to the 64 INT32 lanes and, as IMAD, to
-#: the FMA lanes, so the INT32 lanes alone do not bound it
-DISPATCH_LANES_PER_S = FP32_LANES_PER_S
+#: float32 operations at the peak that take the issue slot of one
+#: instruction a lane: four schedulers an SM dispatch one warp instruction
+#: a clock each (128 lanes, as for FP32, whose peak counts an FFMA as two);
+#: the hash's adds go to the 64 INT32 lanes and, as IMAD, to the FMA lanes,
+#: so the INT32 lanes alone do not bound it
+FLOPS_A_SLOT = 2
 #: hashes of one n-body tag: two fold_ins, three uvec draws, one fert draw
 HASHES_PER_TAG = 6
 #: the kernels' threads a block and most blocks (csrc/threefry.cu)
@@ -2729,9 +2617,7 @@ def threefry_bound(hashes: int, n_bytes: int):
     """(least milliseconds, what bounds it) of ``hashes`` hashes that read
     and write ``n_bytes``: the instruction rate against device-memory
     bytes."""
-    t_ops = hashes * INT_OPS_PER_HASH / DISPATCH_LANES_PER_S * 1e3
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound_ms(FLOPS_A_SLOT * INT_OPS_PER_HASH * hashes, n_bytes)
 
 
 def threefry_sass() -> dict:
@@ -2807,13 +2693,12 @@ def hold_fill(dev) -> None:
     on the CPU, every field bit for bit, one launch a fill."""
     from particlesystem_tpu_torch.core.state import FIELDS
     from particlesystem_tpu_torch.models import nbody
-    from particlesystem_tpu_torch.ops import rng_kernel as rk
     import torch
     for cfg, counts in fill_cases():
         for n in counts:
-            before = rk.nbody_fill_cuda.launches
+            base = launched()
             card = nbody.init_fill(cfg, dev, n)
-            assert rk.nbody_fill_cuda.launches == before + 1, "fill launches"
+            launched(base, dict(ps_nbody_fill=1))
             host = nbody.init_fill(cfg, "cpu", n)
             for f in FIELDS:
                 a, b = getattr(card, f).cpu(), getattr(host, f)
@@ -3078,7 +2963,7 @@ def graph_nodes(fn):
     import ctypes
 
     import torch
-    from particlesystem_tpu_torch.utils.frame_graph import recording
+    from particlesystem_tpu_torch.utils.cuda_build import recording
     try:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
     except TypeError:
@@ -3096,16 +2981,16 @@ def graph_nodes(fn):
     return None if err else n.value
 
 
-def graph_launch_checks(graphs, key, frames: int, kernels) -> str:
-    """The loop ran ``frames`` frames, each kernel of ``kernels`` once a
-    frame: ``eager + replays == frames``, the graph of ``key`` records each
-    kernel once, and the wrappers counted ``frames`` launches of each."""
-    names = {w: name for name, w in _wrappers().items()}
-    rec = {names[w]: n for w, n in graphs.recorded(key).items()}
+def graph_launch_checks(graphs, key, frames: int, kernels, since) -> str:
+    """The loop ran ``frames`` frames, each kernel of ``kernels`` (C entry
+    points) once a frame: ``eager + replays == frames``, the graph of
+    ``key`` records each kernel once, and ``frames`` launches of each were
+    counted since ``since`` (:func:`launched`)."""
+    rec = graphs.recorded(key)
     assert rec == {k: 1 for k in kernels}, f"the graph records {rec}"
     assert graphs.eager_frames + graphs.replays == frames, \
         (graphs.eager_frames, graphs.replays, frames)
-    launches(**{k: frames for k in kernels})
+    launched(since, {k: frames for k in kernels})
     return (f"{graphs.eager_frames} eager (captured {graphs.captures}) + "
             f"{graphs.replays} replays = {frames} frames, each kernel "
             f"({', '.join(kernels)}) recorded once a graph: {frames} "
@@ -3133,7 +3018,7 @@ def phase_graphs_nbody(dev, eager_kernels=None):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     frames = sum(GRAPH_NBODY_BATCHES)
-    reset_launches()
+    base = launched()
     batches = []
     for k in GRAPH_NBODY_BATCHES:
         active = sim._active
@@ -3147,10 +3032,10 @@ def phase_graphs_nbody(dev, eager_kernels=None):
                             next_active=sim._active))
     key = sim._key()
     counted = graph_launch_checks(sim.graphs, key, frames,
-                                  ("cluster_pair", "threefry_nbody")
-                                  + FRAME_KERNELS)
+                                  ("ps_cluster_pair", "ps_nbody_frame_fields")
+                                  + FRAME_ENTRIES, base)
 
-    reset_launches()
+    base = launched()
     frame = 0
     for b in batches:
         t0 = time.perf_counter()
@@ -3170,7 +3055,7 @@ def phase_graphs_nbody(dev, eager_kernels=None):
         for f in FIELDS:
             assert torch.equal(getattr(b["state"], f), getattr(ref, f)), \
                 f"frame {frame}: graph vs eager {f}"
-    launches(**nbody_frames(frames))
+    launched(base, nbody_frames(frames))
     for f in FIELDS:
         assert torch.equal(getattr(sim.state, f), getattr(ref, f))
     del ref
@@ -3239,9 +3124,7 @@ def phase_graphs_nbody(dev, eager_kernels=None):
           f"{last['eager_host_us']:.1f} an eager frame; graph nodes "
           f"{'not measured' if nodes is None else nodes}; a trace of "
           f"{GRAPH_TRACE_FRAMES} replays: {trace['kernels']:.1f} kernels "
-          f"and {trace['moves']:.1f} copies/sets a frame "
-          f"({NBODY_REPLAY_KERNELS_E3} kernels while E was three, "
-          f"{NBODY_REPLAY_KERNELS_BEFORE} before the frame kernels)"
+          f"and {trace['moves']:.1f} copies/sets a frame"
           + ("" if eager_kernels is None else
              f" ({eager_kernels} kernels and copies in phase 4's eager "
              f"frame)")
@@ -3319,7 +3202,7 @@ def phase_graphs_engine(dev):
     for alloc, layout in GRAPH_ENGINE_RUNS:
         eng = PackedEngine(cfg, alloc=alloc, layout=layout, device=dev)
         kernels = tuple(engine_frames(alloc, 1))
-        reset_launches()
+        base = launched()
         es = eng.init(init)
         ms = []
         for k in GRAPH_ENGINE_STEPS:
@@ -3328,8 +3211,9 @@ def phase_graphs_engine(dev):
             end.record()
             torch.cuda.synchronize()
             ms.append(start.elapsed_time(end) / k)
-        counted = graph_launch_checks(eng.graphs, False, frames, kernels)
-        reset_launches()
+        counted = graph_launch_checks(eng.graphs, False, frames, kernels,
+                                      base)
+        base = launched()
         ref = eng.init(init)
         eager_ms = []
         for k in GRAPH_ENGINE_STEPS:
@@ -3340,7 +3224,7 @@ def phase_graphs_engine(dev):
             torch.cuda.synchronize()
             eager_ms.append(start.elapsed_time(end) / k)
         # the eager frame: the plain versions around the physics kernel
-        launches(physics_step=frames, threefry_flat=frames)
+        launched(base, dict(ps_physics_step=frames, ps_flat_fields=frames))
         assert ref.frame == es.frame == frames
         for i, (a, b) in enumerate(zip(es.tensors(), ref.tensors(),
                                        strict=True)):
@@ -3370,9 +3254,7 @@ def phase_graphs_engine(dev):
               f"({eager_ms[0]:.4f}); the host's microseconds a frame "
               f"{host_us:.1f} a replay; a trace of {GRAPH_TRACE_FRAMES} "
               f"replays: {trace['kernels']:.1f} kernels and "
-              f"{trace['moves']:.1f} copies/sets a frame (select/packed8 "
-              f"before the emitter frame's kernels: "
-              f"{ENGINE_REPLAY_BEFORE[0]} and {ENGINE_REPLAY_BEFORE[1]}), "
+              f"{trace['moves']:.1f} copies/sets a frame, "
               f"{trace['device_ms']:.4f} ms of device time in "
               f"{trace['wall_ms']:.4f} ms a frame, device busy "
               f"{trace['busy']:.1%}; microseconds a frame: "
@@ -3544,7 +3426,7 @@ def time_frame_kernels(cfg, st, frame, label: str) -> dict:
         lib = library.get(name)
         lib_ms = None if lib is None else min(cuda_ms(lib, 50),
                                               cuda_ms(lib, 50))
-        bound, by = roofline_ms(work[name], 0)
+        bound, by = bound_ms(0, work[name])
         rows[name] = dict(ms=min(k1, k2), graph_ms=in_graph, cold_ms=cold,
                           plain_ms=min(p1, p2), bound_ms=bound, bound_by=by,
                           library_ms=lib_ms, bytes=work[name])
@@ -3943,16 +3825,13 @@ def hold_engine_frames(dev) -> None:
         cfg = bench_scene(slots)
         init = full_packed(slots, 61)
         eng = PackedEngine(cfg, alloc=alloc, layout=layout, device=dev)
-        reset_launches()
+        base = launched()
         es = eng.step_many(eng.init(init), FRAME_RUN_FRAMES)
-        kernels = ("emitter_spawn", "physics_step", "emitter_tail") + (
-            ("emitter_ring",) if alloc == "ring" else ())
         counted = graph_launch_checks(eng.graphs, False, FRAME_RUN_FRAMES,
-                                      kernels)
+                                      tuple(engine_frames(alloc, 1)), base)
         ref = eng.init(init)
-        with counts_kept():
-            for _ in range(FRAME_RUN_FRAMES):
-                ref = eng._frame(ref, eng.salt)
+        for _ in range(FRAME_RUN_FRAMES):
+            ref = eng._frame(ref, eng.salt)
         assert ref.frame == es.frame == FRAME_RUN_FRAMES
         for i, (a, b) in enumerate(zip(es.tensors(), ref.tensors(),
                                        strict=True)):
@@ -3984,10 +3863,8 @@ def spawn_bound(n_bytes: int, hashes: int, flops: int):
     """(least milliseconds, what bounds it): the bytes at the memory rate
     against the hashes' integer instructions and the float operations at
     the lane rate (pow, sin and cos not counted)."""
-    t_ops = ((hashes * INT_OPS_PER_HASH + flops) / DISPATCH_LANES_PER_S
-             * 1e3)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound_ms(FLOPS_A_SLOT * (hashes * INT_OPS_PER_HASH + flops),
+                    n_bytes)
 
 
 def ring_work(n_fields: int, w: int, n_valid: int, cursor: int,
@@ -4046,7 +3923,7 @@ def time_emitter_kernels(dev) -> dict:
     fields, rows_w, valid, cursor = ring_inputs(EMIT_SLOTS, w, n_valid,
                                                 EMIT_SLOTS // 2, dev, 63)
     n_bytes = ring_work(8, w, n_valid, EMIT_SLOTS // 2, EMIT_SLOTS)
-    bound, by = roofline_ms(n_bytes, 0)
+    bound, by = bound_ms(0, n_bytes)
     rows["emitter_ring"] = time_emitter_kernel(
         f"ring write, {EMIT_SLOTS} slots, {n_valid} of {w} rows valid "
         f"({n_bytes} bytes)",
@@ -4057,7 +3934,7 @@ def time_emitter_kernels(dev) -> dict:
     acc_next = out.accum.clone()
     cur = torch.zeros((), dtype=torch.int32, device=dev)
     n_bytes = 2 * 4 * accum.numel() + 8 + 16
-    bound, by = roofline_ms(n_bytes, 0)
+    bound, by = bound_ms(0, n_bytes)
     rows["emitter_tail"] = time_emitter_kernel(
         f"frame tail ({n_bytes} bytes)",
         lambda: ek.frame_tail_cuda(accum, acc_next, cur, frame_t, w,
@@ -4082,13 +3959,11 @@ def phase_emitter_kernels(dev) -> tuple:
     and the launch floor.  Returns (rows of the kernels line, the largest
     difference)."""
     t0 = time.perf_counter()
-    with counts_kept():
-        n_spawn, e1 = hold_spawn(dev)
-        n_ring, e2 = hold_ring(dev)
-        n_tail, e3 = hold_tail(dev)
+    n_spawn, e1 = hold_spawn(dev)
+    n_ring, e2 = hold_ring(dev)
+    n_tail, e3 = hold_tail(dev)
     hold_engine_frames(dev)
-    with counts_kept():
-        rows = time_emitter_kernels(dev)
+    rows = time_emitter_kernels(dev)
     print(f"phase 16: {n_spawn} spawn windows, {n_ring} ring writes, "
           f"{n_tail} tails held; {time.perf_counter() - t0:.1f} s")
     return rows, max(e1, e2, e3)
@@ -4164,7 +4039,7 @@ def main() -> int:
     physics_err = phase_physics_vs_plain(dev)
     phase_engine_card_vs_cpu(dev)
     emitter = phase_emitter_main_path(dev)
-    alu, affine = phase_probes(dev, main_path["plateau"])
+    alu, affine = phase_probes(dev)
     phase_dense_vs_blocks(sim)
     phase_validate_checkpoint_profile(sim, dev)
     del sim

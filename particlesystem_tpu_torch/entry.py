@@ -88,19 +88,19 @@ def _dryrun_rank(rank, group, n_devices, device):
     """One rank of :func:`dryrun_multichip`: the decompositions in turn,
     one frame each; returns {decomposition: statistics}, with
     ``pair_launches`` the rank's launches of the pair kernel in the frame."""
-    from .ops.neighbor_blocks import cluster_pair_cuda
     from .parallel import DistributedNBodySimulation
+    from .utils.cuda_build import launches
 
     out = {}
     for name, (cfg, spec) in dryrun_specs(n_devices).items():
         sim = DistributedNBodySimulation(cfg, spec, group=group,
                                          device=device)
-        before = cluster_pair_cuda.launches
+        before = launches().get("ps_cluster_pair", 0)
         stats = sim.run(1, batch=1)
         if stats["n_alive"] <= 0:
             raise RuntimeError(f"{name} dry run produced an empty world")
-        out[name] = dict(stats,
-                         pair_launches=cluster_pair_cuda.launches - before)
+        out[name] = dict(stats, pair_launches=launches().get(
+            "ps_cluster_pair", 0) - before)
     return out
 
 

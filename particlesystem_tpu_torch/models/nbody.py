@@ -39,6 +39,7 @@ from ..ops import rng_kernel
 from ..ops.grid import (build_bins, chunk_occupancy, coords_to_cell,
                         wrap_positions)
 from ..ops.neighbor import collision_okey, neighbor_pass
+from ..utils.cuda_build import by_device
 from ..utils.timers import span
 
 
@@ -122,12 +123,13 @@ def init_fill(cfg: NBodyConfig, device, n: int | None = None
     if n > cfg.slots:
         raise ValueError(f"n_fill={n} exceeds capacity {cfg.slots}")
     dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"no fill for device {dev}")
+    fill = by_device(dev, "fill", _fill_cuda, init_fill_plain)
     with span("nbody.fill", n=n):
-        if dev.type == "cuda":
-            return rng_kernel.nbody_fill_cuda(fill_args(cfg, n), dev)
-        return init_fill_plain(cfg, dev, n)
+        return fill(cfg, dev, n)
+
+
+def _fill_cuda(cfg: NBodyConfig, device, n: int) -> ParticleState:
+    return rng_kernel.nbody_fill_cuda(fill_args(cfg, n), device)
 
 
 def frame_fields(cfg: NBodyConfig, frame, tags: torch.Tensor):

@@ -20,9 +20,8 @@ kernel): everything the frame computes outside the physics kernel.
   ``accum`` from the scratch, the strided/select cursor advanced by the
   spawn width, the device frame one on.
 
-Each is a dispatcher like ``ops/rng_kernel.py``: CUDA tensors launch the
-kernel (``*_cuda``, which counts its launches in ``.launches`` through
-``utils/frame_graph.count_launch``), CPU tensors take the plain version
+Each is a dispatcher (``utils/cuda_build.by_device``): CUDA tensors
+launch the kernel (``*_cuda``), CPU tensors take the plain version
 (``*_plain``, the torch code the kernel replaces); any other device
 raises, and so does a failed launch.  All three write into buffers they
 are given: the engine's window, its state's cursor and accum, its frame
@@ -40,8 +39,7 @@ import torch
 from ..core import rng
 from ..core.config import EmitterSceneConfig
 from ..models import emitter as em
-from ..utils.cuda_build import launch
-from ..utils.frame_graph import count_launch
+from ..utils.cuda_build import by_device, launch
 from . import fused_step as fs
 from .rng_kernel import frame_on
 
@@ -127,12 +125,9 @@ def spawn_window_cuda(cfg: EmitterSceneConfig, table: em.SpawnTable,
                       accum: torch.Tensor, frame, salt: int,
                       out: Window) -> Window:
     """Launch ``ps_emitter_spawn`` on the current stream into ``out`` (the
-    frame read on the device, :func:`~.rng_kernel.frame_on`); counts its
-    launches in ``spawn_window_cuda.launches``."""
+    frame read on the device, :func:`~.rng_kernel.frame_on`)."""
     _check_window(cfg, table, accum, out)
     dev = accum.device
-    if dev.type != "cuda":
-        raise ValueError(f"spawn_window_cuda needs CUDA tensors, got {dev}")
     if table.packed.device != dev:
         raise ValueError(f"the spawn table lies on {table.packed.device}, "
                          f"the window on {dev}")
@@ -140,37 +135,31 @@ def spawn_window_cuda(cfg: EmitterSceneConfig, table: em.SpawnTable,
     rows, valid, acc = out
     slim = rows.shape[0] == 7
     inv_dt = float(np.float32(1.0) / np.float32(cfg.dt))
-    err = launch("ps_emitter_spawn", dev, table.packed.data_ptr(),
-                 table.row_emitter.data_ptr(), table.total,
-                 len(cfg.emitters), accum.data_ptr(), acc.data_ptr(),
-                 frame.data_ptr(), *rng._purpose_key(cfg.seed, rng.EMIT),
-                 int(salt) & rng.M32, rows.data_ptr(), valid.data_ptr(),
-                 rows.shape[1], int(slim), inv_dt)
-    if err:
-        raise RuntimeError(f"emitter spawn kernel launch failed: CUDA error "
-                           f"{err}")
-    count_launch(spawn_window_cuda)
+    launch("ps_emitter_spawn", dev, table.packed.data_ptr(),
+           table.row_emitter.data_ptr(), table.total, len(cfg.emitters),
+           accum.data_ptr(), acc.data_ptr(), frame.data_ptr(),
+           *rng._purpose_key(cfg.seed, rng.EMIT), int(salt) & rng.M32,
+           rows.data_ptr(), valid.data_ptr(), rows.shape[1], int(slim),
+           inv_dt)
     return out
 
 
-spawn_window_cuda.launches = 0
+def _spawn_window_cpu(cfg, table, accum, frame, salt, out: Window) -> Window:
+    _check_window(cfg, table, accum, out)
+    got = spawn_window_plain(cfg, table, accum, frame, salt,
+                             out.rows.shape[0], out.rows.shape[1])
+    for dst, src in zip(out, got):
+        dst.copy_(src)
+    return out
 
 
 def spawn_window(cfg: EmitterSceneConfig, table: em.SpawnTable,
                  accum: torch.Tensor, frame, salt: int, out: Window) -> Window:
     """The frame's spawn window into ``out``: the kernel for CUDA tensors,
     the plain version (copied in) for CPU ones."""
-    dev = accum.device
-    if dev.type == "cuda":
-        return spawn_window_cuda(cfg, table, accum, frame, salt, out)
-    if dev.type == "cpu":
-        _check_window(cfg, table, accum, out)
-        got = spawn_window_plain(cfg, table, accum, frame, salt,
-                                 out.rows.shape[0], out.rows.shape[1])
-        for dst, src in zip(out, got):
-            dst.copy_(src)
-        return out
-    raise ValueError(f"no emitter spawn kernel for device {dev}")
+    return by_device(accum, "emitter spawn kernel", spawn_window_cuda,
+                     _spawn_window_cpu)(cfg, table, accum, frame, salt,
+                                        out)
 
 
 # --- the ring allocator's write -----------------------------------------------
@@ -208,24 +197,13 @@ def ring_write_plain(fields, rows, valid, cursor, n_real: int):
 
 
 def ring_write_cuda(fields, rows, valid, cursor, n_real: int):
-    """Launch ``ps_emitter_ring`` on the current stream; counts its
-    launches in ``ring_write_cuda.launches``."""
+    """Launch ``ps_emitter_ring`` on the current stream."""
     _check_ring(fields, rows, valid, cursor, n_real)
-    dev = valid.device
-    if dev.type != "cuda":
-        raise ValueError(f"ring_write_cuda needs CUDA tensors, got {dev}")
     ptrs = [f.data_ptr() for f in fields] + [None] * (8 - len(fields))
-    err = launch("ps_emitter_ring", dev, *ptrs, len(fields), n_real,
-                 rows.data_ptr(), valid.data_ptr(), valid.shape[0],
-                 cursor.data_ptr())
-    if err:
-        raise RuntimeError(f"emitter ring kernel launch failed: CUDA error "
-                           f"{err}")
-    count_launch(ring_write_cuda)
+    launch("ps_emitter_ring", valid.device, *ptrs, len(fields), n_real,
+           rows.data_ptr(), valid.data_ptr(), valid.shape[0],
+           cursor.data_ptr())
     return fields
-
-
-ring_write_cuda.launches = 0
 
 
 def ring_write(fields, rows, valid, cursor, n_real: int):
@@ -233,12 +211,9 @@ def ring_write(fields, rows, valid, cursor, n_real: int):
     ``n_real`` slots and a shadow of the window's width), the cursor
     advanced in place: the kernel for CUDA tensors, the plain version for
     CPU ones."""
-    dev = valid.device
-    if dev.type == "cuda":
-        return ring_write_cuda(fields, rows, valid, cursor, n_real)
-    if dev.type == "cpu":
-        return ring_write_plain(fields, rows, valid, cursor, n_real)
-    raise ValueError(f"no emitter ring kernel for device {dev}")
+    return by_device(valid, "emitter ring kernel", ring_write_cuda,
+                     ring_write_plain)(fields, rows, valid, cursor,
+                                       n_real)
 
 
 # --- the frame's bookkeeping --------------------------------------------------
@@ -272,22 +247,11 @@ def frame_tail_plain(accum, accum_next, cursor, frame, advance: int,
 
 def frame_tail_cuda(accum, accum_next, cursor, frame, advance: int,
                     slots: int) -> None:
-    """Launch ``ps_emitter_tail`` on the current stream; counts its
-    launches in ``frame_tail_cuda.launches``."""
+    """Launch ``ps_emitter_tail`` on the current stream."""
     _check_tail(accum, accum_next, cursor, frame, advance, slots)
-    dev = accum.device
-    if dev.type != "cuda":
-        raise ValueError(f"frame_tail_cuda needs CUDA tensors, got {dev}")
-    err = launch("ps_emitter_tail", dev, accum.data_ptr(),
-                 accum_next.data_ptr(), accum.shape[0], cursor.data_ptr(),
-                 advance, slots, frame.data_ptr())
-    if err:
-        raise RuntimeError(f"emitter tail kernel launch failed: CUDA error "
-                           f"{err}")
-    count_launch(frame_tail_cuda)
-
-
-frame_tail_cuda.launches = 0
+    launch("ps_emitter_tail", accum.device, accum.data_ptr(),
+           accum_next.data_ptr(), accum.shape[0], cursor.data_ptr(),
+           advance, slots, frame.data_ptr())
 
 
 def frame_tail(accum, accum_next, cursor, frame, advance: int,
@@ -296,11 +260,6 @@ def frame_tail(accum, accum_next, cursor, frame, advance: int,
     cursor ``<- (cursor + advance) mod slots`` when ``advance`` is not 0;
     ``frame <- frame + 1``.  The kernel for CUDA tensors, the plain
     version for CPU ones."""
-    dev = accum.device
-    if dev.type == "cuda":
-        return frame_tail_cuda(accum, accum_next, cursor, frame, advance,
-                               slots)
-    if dev.type == "cpu":
-        return frame_tail_plain(accum, accum_next, cursor, frame, advance,
-                                slots)
-    raise ValueError(f"no emitter tail kernel for device {dev}")
+    return by_device(accum, "emitter tail kernel", frame_tail_cuda,
+                     frame_tail_plain)(accum, accum_next, cursor, frame,
+                                       advance, slots)

@@ -33,9 +33,9 @@ computes outside the pair kernel, the threefry draw and the sort.
   ``e`` by a decoupled look-back, then the children (scratch:
   :func:`spawn_scratch_words`).
 
-Each is a dispatcher: CUDA tensors launch the kernel (``*_cuda``, which
-counts its launches in ``.launches`` through ``utils/frame_graph``), CPU
-tensors take the plain version (``*_plain``); any other device raises.
+Each is a dispatcher (``utils/cuda_build.by_device``): CUDA tensors launch
+the kernel (``*_cuda``), CPU tensors take the plain version (``*_plain``);
+any other device raises.
 :func:`sort_and_prepare` runs the sort, B and C in the frame's order for
 every caller (``models/nbody.blocks_frame`` and
 ``api.NBodySimulation.profile_frame`` through :func:`cells_and_rows`,
@@ -62,8 +62,7 @@ import torch
 from ..core import rng
 from ..core.config import GridSpec, NBodyConfig
 from ..core.state import FIELDS, ParticleState
-from ..utils.cuda_build import launch
-from ..utils.frame_graph import count_launch
+from ..utils.cuda_build import by_device, launch
 from .compact import rank_table, write_rows
 from .grid import coords_to_cell, wrap_positions
 from .neighbor import IMIN, as_f32, collision_okey
@@ -139,13 +138,7 @@ def stats_chunks(stats, grid: GridSpec) -> int:
     return n
 
 
-# --- checks and launch ----------------------------------------------------------
-
-def _cuda_device(t: torch.Tensor, who) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(f"{who.__name__} needs CUDA tensors, got {t.device}")
-    return t.device
-
+# --- checks ---------------------------------------------------------------------
 
 def _check(dev, t: torch.Tensor, dtype, shape, what: str,
            align: int = 1) -> None:
@@ -174,18 +167,7 @@ def _check_state(dev, st: ParticleState, n: int, what: str) -> None:
         _check(dev, t, dtype, shape, f"{what}.{f}")
 
 
-def _launch(name: str, dev, *args) -> None:
-    err = launch(name, dev, *args)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
-def _dispatch(t: torch.Tensor, cuda_fn, plain_fn):
-    if t.device.type == "cuda":
-        return cuda_fn
-    if t.device.type == "cpu":
-        return plain_fn
-    raise ValueError(f"no n-body frame kernel for device {t.device}")
+_KERNEL = "n-body frame kernel"
 
 
 # --- A: cells ---------------------------------------------------------------------
@@ -233,7 +215,7 @@ def nbody_cells_plain(pos: torch.Tensor, alive: torch.Tensor, age, w, tags,
 def nbody_cells_cuda(pos: torch.Tensor, alive: torch.Tensor, age, w, tags,
                      grid: GridSpec, records: bool = True):
     """Launch ``ps_nbody_cells``; same contract as the plain version."""
-    dev = _cuda_device(pos, nbody_cells_cuda)
+    dev = pos.device
     n = pos.shape[0]
     _check(dev, pos, torch.float32, (n, 3), "pos")
     _check(dev, alive, torch.bool, (n,), "alive")
@@ -245,20 +227,16 @@ def nbody_cells_cuda(pos: torch.Tensor, alive: torch.Tensor, age, w, tags,
         _check(dev, tags, torch.int64, (n,), "tags")
         rec = torch.empty((n, RECORD), dtype=torch.int32, device=dev)
     ptr = lambda t: None if rec is None else t.data_ptr()
-    _launch("ps_nbody_cells", dev, pos.data_ptr(), alive.data_ptr(),
-            ptr(age), ptr(w), ptr(tags), n, grid.grid_dim,
-            as_f32(1.0 / grid.cell_size), as_f32(grid.cell_size),
-            key.data_ptr(), ptr(rec))
-    count_launch(nbody_cells_cuda)
+    launch("ps_nbody_cells", dev, pos.data_ptr(), alive.data_ptr(),
+           ptr(age), ptr(w), ptr(tags), n, grid.grid_dim,
+           as_f32(1.0 / grid.cell_size), as_f32(grid.cell_size),
+           key.data_ptr(), ptr(rec))
     return key, rec
-
-
-nbody_cells_cuda.launches = 0
 
 
 def nbody_cells(pos, alive, age, w, tags, grid: GridSpec,
                 records: bool = True):
-    return _dispatch(pos, nbody_cells_cuda, nbody_cells_plain)(
+    return by_device(pos, _KERNEL, nbody_cells_cuda, nbody_cells_plain)(
         pos, alive, age, w, tags, grid, records)
 
 
@@ -275,22 +253,18 @@ def cell_starts_plain(skey: torch.Tensor, num_cells: int) -> torch.Tensor:
 def cell_starts_cuda(skey: torch.Tensor, num_cells: int) -> torch.Tensor:
     """Launch ``ps_cell_starts``, one thread a sorted row; same contract as
     the plain version."""
-    dev = _cuda_device(skey, cell_starts_cuda)
+    dev = skey.device
     n = skey.shape[0]
     _check(dev, skey, torch.int32, (n,), "skey")
     starts = torch.empty((num_cells + 2,), dtype=torch.int32, device=dev)
-    _launch("ps_cell_starts", dev, skey.data_ptr(), n, num_cells,
-            starts.data_ptr())
-    count_launch(cell_starts_cuda)
+    launch("ps_cell_starts", dev, skey.data_ptr(), n, num_cells,
+           starts.data_ptr())
     return starts
 
 
-cell_starts_cuda.launches = 0
-
-
 def cell_starts(skey, num_cells: int):
-    return _dispatch(skey, cell_starts_cuda, cell_starts_plain)(skey,
-                                                                num_cells)
+    return by_device(skey, _KERNEL, cell_starts_cuda, cell_starts_plain)(
+        skey, num_cells)
 
 
 # --- C: block prepare -------------------------------------------------------------
@@ -437,7 +411,7 @@ def block_prepare_cuda(rows, skey, order, starts, cfg: NBodyConfig, stats,
     """Launch ``ps_block_prepare``, one CTA a block of ``b`` sorted rows
     (``b`` a multiple of :data:`C_ROWS`), on the records or the state's
     arrays; same contract as the plain version."""
-    dev = _cuda_device(skey, block_prepare_cuda)
+    dev = skey.device
     n = skey.shape[0]
     num_cells, row_stride, plane_stride = _layout(cfg, n, b, dims)
     if c_max <= 0 or ch <= 0 or b % C_ROWS:
@@ -473,23 +447,20 @@ def block_prepare_cuda(rows, skey, order, starts, cfg: NBodyConfig, stats,
     offs = np.asarray(stencil_offsets(row_stride, plane_stride), np.int32)
     g, cd, cf = ((0, 0, 0) if grid is None else
                  (grid.grid_dim, grid.chunk_dim, grid.chunk_factor))
-    _launch("ps_block_prepare", dev, *ptrs, skey.data_ptr(),
-            order.data_ptr(), starts.data_ptr(), n, b, num_cells,
-            row_stride, plane_stride, offs.ctypes.data, cfg.cell_capacity,
-            as_f32(cfg.kid_age), as_f32(cfg.particle_life), c_max, ch, g, cd,
-            cf, f.data_ptr(), i.data_ptr(), chunks.data_ptr(), inv.data_ptr(),
-            overflow_s.data_ptr(), stats.data_ptr())
-    count_launch(block_prepare_cuda)
+    launch("ps_block_prepare", dev, *ptrs, skey.data_ptr(),
+           order.data_ptr(), starts.data_ptr(), n, b, num_cells,
+           row_stride, plane_stride, offs.ctypes.data, cfg.cell_capacity,
+           as_f32(cfg.kid_age), as_f32(cfg.particle_life), c_max, ch, g, cd,
+           cf, f.data_ptr(), i.data_ptr(), chunks.data_ptr(), inv.data_ptr(),
+           overflow_s.data_ptr(), stats.data_ptr())
     return Snapshot(f, i), chunks, inv, overflow_s
-
-
-block_prepare_cuda.launches = 0
 
 
 def block_prepare(rows, skey, order, starts, cfg: NBodyConfig, stats,
                   c_max: int, ch: int, b: int, dims=None,
                   grid: GridSpec | None = None):
-    return _dispatch(skey, block_prepare_cuda, block_prepare_plain)(
+    return by_device(skey, _KERNEL, block_prepare_cuda,
+                     block_prepare_plain)(
         rows, skey, order, starts, cfg, stats, c_max, ch, b, dims=dims,
         grid=grid)
 
@@ -661,7 +632,7 @@ def nbody_lifecycle_cuda(state: ParticleState, out: ParticleState, acc_s,
                          stats):
     """Launch ``ps_nbody_lifecycle``, one thread a slot (its block 0 also
     reduces the chunk counters); same contract as the plain version."""
-    dev = _cuda_device(state.pos, nbody_lifecycle_cuda)
+    dev = state.pos.device
     n = state.slots
     m = _pass_rows(acc_s, n)
     _check_state(dev, state, n, "state")
@@ -688,21 +659,18 @@ def nbody_lifecycle_cuda(state: ParticleState, out: ParticleState, acc_s,
     bools = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in (
         state.alive, state.parent, out.alive, out.parent)))
     tags = (ctypes.c_void_p * 2)(state.tag.data_ptr(), out.tag.data_ptr())
-    _launch("ps_nbody_lifecycle", dev, ctypes.addressof(fields),
-            ctypes.addressof(bools), ctypes.addressof(tags), acc_s.data_ptr(),
-            m, gmax_s.data_ptr(), overflow_s.data_ptr(), inv.data_ptr(),
-            uvec.data_ptr(), n, consts.ctypes.data, g.grid_dim, num_chunks,
-            flags.data_ptr(), tiles.data_ptr(), stats.data_ptr())
-    count_launch(nbody_lifecycle_cuda)
+    launch("ps_nbody_lifecycle", dev, ctypes.addressof(fields),
+           ctypes.addressof(bools), ctypes.addressof(tags), acc_s.data_ptr(),
+           m, gmax_s.data_ptr(), overflow_s.data_ptr(), inv.data_ptr(),
+           uvec.data_ptr(), n, consts.ctypes.data, g.grid_dim, num_chunks,
+           flags.data_ptr(), tiles.data_ptr(), stats.data_ptr())
     return flags, tiles
-
-
-nbody_lifecycle_cuda.launches = 0
 
 
 def nbody_lifecycle(state, out, acc_s, gmax_s, overflow_s, inv, uvec,
                     cfg: NBodyConfig, stats):
-    return _dispatch(state.pos, nbody_lifecycle_cuda, nbody_lifecycle_plain)(
+    return by_device(state.pos, _KERNEL, nbody_lifecycle_cuda,
+                     nbody_lifecycle_plain)(
         state, out, acc_s, gmax_s, overflow_s, inv, uvec, cfg, stats)
 
 
@@ -773,7 +741,7 @@ def nbody_spawn_cuda(out: ParticleState, fert, frame, flags, tiles,
     kernels (the ranks against the budget by a decoupled look-back; the
     children, k read on the device), the frame read on the device
     (``rng_kernel.frame_on``); same contract as the plain version."""
-    dev = _cuda_device(out.pos, nbody_spawn_cuda)
+    dev = out.pos.device
     n = out.slots
     _check_state(dev, out, n, "out")
     _check(dev, fert, torch.float32, (n,), "fert")
@@ -790,17 +758,13 @@ def nbody_spawn_cuda(out: ParticleState, fert, frame, flags, tiles,
         out.pos, out.vel, out.acc, out.w, out.age, out.life)))
     bools = (ctypes.c_void_p * 2)(out.alive.data_ptr(),
                                   out.parent.data_ptr())
-    _launch("ps_nbody_spawn", dev, ctypes.addressof(fields),
-            ctypes.addressof(bools), out.tag.data_ptr(), fert.data_ptr(),
-            frame.data_ptr(), flags.data_ptr(), tiles.data_ptr(), n, e,
-            as_f32(cfg.weight), scratch.data_ptr(), stats.data_ptr())
-    count_launch(nbody_spawn_cuda)
-
-
-nbody_spawn_cuda.launches = 0
+    launch("ps_nbody_spawn", dev, ctypes.addressof(fields),
+           ctypes.addressof(bools), out.tag.data_ptr(), fert.data_ptr(),
+           frame.data_ptr(), flags.data_ptr(), tiles.data_ptr(), n, e,
+           as_f32(cfg.weight), scratch.data_ptr(), stats.data_ptr())
 
 
 def nbody_spawn(out, fert, frame, flags, tiles, cfg: NBodyConfig,
                 stats) -> None:
-    return _dispatch(out.pos, nbody_spawn_cuda, nbody_spawn_plain)(
+    return by_device(out.pos, _KERNEL, nbody_spawn_cuda, nbody_spawn_plain)(
         out, fert, frame, flags, tiles, cfg, stats)

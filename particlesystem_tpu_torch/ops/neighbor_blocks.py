@@ -66,8 +66,8 @@ import numpy as np
 import torch
 
 from ..core.config import NBodyConfig
-from ..utils.cuda_build import launch
-from ..utils.frame_graph import count_launch
+from ..utils import cuda_build
+from ..utils.cuda_build import by_device, launch
 from . import frame_kernels as fk
 from .frame_kernels import Snapshot
 from .neighbor import IMIN, as_f32, collision_okey
@@ -197,10 +197,7 @@ def walk_counts(device=None) -> dict:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     out = (ctypes.c_longlong * len(WALK_COUNTS))()
-    err = launch("ps_cluster_pair_counts", dev, ctypes.addressof(out))
-    if err:
-        raise RuntimeError(f"cluster-pair counters read failed: CUDA error "
-                           f"{err}")
+    cuda_build.read("ps_cluster_pair_counts", dev, ctypes.addressof(out))
     return dict(zip(WALK_COUNTS, out))
 
 
@@ -212,13 +209,10 @@ def cluster_pair_cuda(cfg: NBodyConfig, snap: Snapshot, chunks, b: int,
     ``max(1, max|acc|)``; a row's sum in the order the kernel's source
     sets out, fixed by the state).  ``ch`` is only validated:
     the kernel reads each chunk's valid columns from the chunk table and
-    cuts them into pieces of its own width.  Counts its launches in
-    ``cluster_pair_cuda.launches``."""
+    cuts them into pieces of its own width."""
     f, i = snap
     n = f.shape[1]
     dev = f.device
-    if dev.type != "cuda":
-        raise ValueError(f"cluster_pair_cuda needs CUDA tensors, got {dev}")
     if f.dtype != torch.float32 or f.shape != (7, n) or not f.is_contiguous():
         raise ValueError(f"snap.f must be contiguous float32 (7, N), got "
                          f"{f.dtype} {tuple(f.shape)}")
@@ -254,19 +248,11 @@ def cluster_pair_cuda(cfg: NBodyConfig, snap: Snapshot, chunks, b: int,
     gmax = torch.empty((m,), dtype=torch.int32, device=dev)
     if m == 0:
         return acc, gmax
-    err = launch("ps_cluster_pair", dev, f.data_ptr(), i.data_ptr(), n,
-                 chunks.data_ptr(),
-                 None if blocks is None else blocks.data_ptr(), nsel, b,
-                 chunks.shape[1], eps2, r2, acc.data_ptr(), m,
-                 gmax.data_ptr())
-    if err:
-        raise RuntimeError(f"cluster-pair kernel launch failed: CUDA error "
-                           f"{err}")
-    count_launch(cluster_pair_cuda)
+    launch("ps_cluster_pair", dev, f.data_ptr(), i.data_ptr(), n,
+           chunks.data_ptr(), None if blocks is None else blocks.data_ptr(),
+           nsel, b, chunks.shape[1], eps2, r2, acc.data_ptr(), m,
+           gmax.data_ptr())
     return acc, gmax
-
-
-cluster_pair_cuda.launches = 0
 
 
 def kernel_call(cfg: NBodyConfig, snap: Snapshot, chunks,
@@ -276,12 +262,8 @@ def kernel_call(cfg: NBodyConfig, snap: Snapshot, chunks,
     CUDA kernel; CPU tensors take :func:`cluster_pair_plain`."""
     ch = CH if ch is None else ch
     b = B if b is None else b
-    dev = snap.f.device
-    if dev.type == "cuda":
-        return cluster_pair_cuda(cfg, snap, chunks, b, ch)
-    if dev.type == "cpu":
-        return cluster_pair_plain(cfg, snap, chunks, b, ch)
-    raise ValueError(f"no cluster-pair kernel for device {dev}")
+    return by_device(snap.f, "cluster-pair kernel", cluster_pair_cuda,
+                     cluster_pair_plain)(cfg, snap, chunks, b, ch)
 
 
 def unsort_outputs(acc_s, gmax_s, order, overflow_s, okeys):

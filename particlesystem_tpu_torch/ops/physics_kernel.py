@@ -24,8 +24,7 @@ import numpy as np
 import torch
 
 from ..core.config import EmitterSceneConfig
-from ..utils.cuda_build import launch
-from ..utils.frame_graph import count_launch
+from ..utils.cuda_build import by_device, launch
 from . import fused_step as fs
 
 MAX_PLANES = 8
@@ -102,12 +101,8 @@ def physics_step_plain(fields, cfg: EmitterSceneConfig, window=None):
 def physics_step_cuda(fields, cfg: EmitterSceneConfig, window=None):
     """Launch the CUDA physics kernel on the current stream; updates
     ``fields`` in place and returns them.  ``window`` as in the module
-    docstring; its cursor must lie in ``[0, N - W]``.  Counts its launches
-    in ``physics_step_cuda.launches``."""
+    docstring; its cursor must lie in ``[0, N - W]``."""
     _check(fields, window)
-    dev = fields[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"physics_step_cuda needs CUDA tensors, got {dev}")
     scene = scene_params(cfg)
     slim = len(fields) == 7
     ptrs = [f.data_ptr() for f in fields] + ([None] if slim else [])
@@ -116,24 +111,14 @@ def physics_step_cuda(fields, cfg: EmitterSceneConfig, window=None):
     if window is not None:
         rows, valid, cursor = (t.data_ptr() for t in window)
         w = window[1].shape[0]
-    err = launch("ps_physics_step", dev, *ptrs, fields[0].shape[0],
-                 int(slim), scene.ctypes.data, len(cfg.planes),
-                 len(cfg.spheres), rows, valid, w, cursor)
-    if err:
-        raise RuntimeError(f"physics kernel launch failed: CUDA error {err}")
-    count_launch(physics_step_cuda)
+    launch("ps_physics_step", fields[0].device, *ptrs, fields[0].shape[0],
+           int(slim), scene.ctypes.data, len(cfg.planes), len(cfg.spheres),
+           rows, valid, w, cursor)
     return fields
-
-
-physics_step_cuda.launches = 0
 
 
 def physics_step(fields, cfg: EmitterSceneConfig, window=None):
     """One physics frame (and the spawn window, if given) of the engine's
     fields: the kernel for CUDA tensors, the plain version for CPU ones."""
-    dev = fields[0].device
-    if dev.type == "cuda":
-        return physics_step_cuda(fields, cfg, window)
-    if dev.type == "cpu":
-        return physics_step_plain(fields, cfg, window)
-    raise ValueError(f"no physics kernel for device {dev}")
+    return by_device(fields[0], "physics kernel", physics_step_cuda,
+                     physics_step_plain)(fields, cfg, window)

@@ -7,10 +7,10 @@ there is no Pallas kernel): the threefry of ``core/rng.py``, bit for bit,
 with every hash of a field in one launch instead of some 170 int64 tensor
 operations a hash.
 
-Two functions, each a dispatcher: CUDA tensors (or a CUDA ``device``)
-launch the kernel, CPU ones take the plain version, built on
-``core/rng.py``; any other device raises.  A third entry point writes a
-whole state rather than fields:
+Two functions, each a dispatcher (``utils/cuda_build.by_device``): CUDA
+tensors (or a CUDA ``device``) launch the kernel, CPU ones take the plain
+version, built on ``core/rng.py``; any other device raises.  A third entry
+point writes a whole state rather than fields:
 
 * :func:`nbody_fields` — the n-body frame's per-tag fields (what
   ``models/nbody.frame_fields`` returns): the explosion unit vector under
@@ -46,8 +46,7 @@ import torch
 
 from ..core import rng
 from ..core.state import FIELDS, ParticleState
-from ..utils.frame_graph import count_launch
-from ..utils.cuda_build import launch
+from ..utils.cuda_build import by_device, launch
 
 UNIT, AFFINE, LATTICE = 0, 1, 2
 MAX_DRAWS = 4
@@ -156,12 +155,9 @@ def nbody_fields_plain(seed: int, frame, tags: torch.Tensor, lo: float,
 def nbody_fields_cuda(seed: int, frame, tags: torch.Tensor, lo: float,
                       hi: float):
     """Launch ``ps_nbody_frame_fields`` on the current stream, the frame
-    read on the device (:func:`frame_on`); counts its launches in
-    ``nbody_fields_cuda.launches`` (``utils/frame_graph.count_launch``)."""
+    read on the device (:func:`frame_on`)."""
     _check_tags(tags)
     dev = tags.device
-    if dev.type != "cuda":
-        raise ValueError(f"nbody_fields_cuda needs a CUDA tensor, got {dev}")
     tags = tags.contiguous()
     n = tags.shape[0]
     uvec = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -169,29 +165,20 @@ def nbody_fields_cuda(seed: int, frame, tags: torch.Tensor, lo: float,
     if n == 0:
         return uvec, fert
     frame = frame_on(frame, dev)
-    err = launch("ps_nbody_frame_fields", dev, tags.data_ptr(), n,
-                 uvec.data_ptr(), fert.data_ptr(), frame.data_ptr(),
-                 *rng._purpose_key(seed, rng.UVEC),
-                 *rng._purpose_key(seed, rng.FERT),
-                 float(np.float32(lo)), float(np.float32(hi - lo)))
-    if err:
-        raise RuntimeError(f"threefry kernel launch failed: CUDA error {err}")
-    count_launch(nbody_fields_cuda)
+    launch("ps_nbody_frame_fields", dev, tags.data_ptr(), n,
+           uvec.data_ptr(), fert.data_ptr(), frame.data_ptr(),
+           *rng._purpose_key(seed, rng.UVEC),
+           *rng._purpose_key(seed, rng.FERT),
+           float(np.float32(lo)), float(np.float32(hi - lo)))
     return uvec, fert
-
-
-nbody_fields_cuda.launches = 0
 
 
 def nbody_fields(seed: int, frame, tags: torch.Tensor, lo: float,
                  hi: float):
     """The n-body frame's random fields of ``tags``: the kernel for a CUDA
     tensor, the plain version for a CPU one."""
-    if tags.device.type == "cuda":
-        return nbody_fields_cuda(seed, frame, tags, lo, hi)
-    if tags.device.type == "cpu":
-        return nbody_fields_plain(seed, frame, tags, lo, hi)
-    raise ValueError(f"no threefry kernel for device {tags.device}")
+    return by_device(tags, "threefry kernel", nbody_fields_cuda,
+                     nbody_fields_plain)(seed, frame, tags, lo, hi)
 
 
 # --- flat draws -----------------------------------------------------------------
@@ -215,12 +202,9 @@ def flat_fields_plain(draws, frame, device) -> list:
 def flat_fields_cuda(draws, frame, device) -> list:
     """Launch ``ps_flat_fields`` on the current stream for every draw at
     once, the frame read on the device (:func:`frame_on`); returns one view
-    a draw of one float32 buffer.  Counts its launches in
-    ``flat_fields_cuda.launches``."""
+    a draw of one float32 buffer."""
     _check_draws(draws)
     dev = _device(device)
-    if dev.type != "cuda":
-        raise ValueError(f"flat_fields_cuda needs a CUDA device, got {dev}")
     sizes = [math.prod(d.out_shape) for d in draws]
     buf = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
     if sum(sizes):
@@ -234,30 +218,20 @@ def flat_fields_cuda(draws, frame, device) -> list:
         items = np.asarray([d.items for d in draws], np.int64)
         kinds = np.asarray([d.kind for d in draws], np.int32)
         affine = np.asarray([(d.lo, d.hi - d.lo) for d in draws], np.float32)
-        err = launch("ps_flat_fields", dev, buf.data_ptr(), len(draws),
-                     frame.data_ptr(), keys.ctypes.data, n_words.ctypes.data,
-                     words.ctypes.data, items.ctypes.data, kinds.ctypes.data,
-                     affine.ctypes.data)
-        if err:
-            raise RuntimeError(f"threefry kernel launch failed: CUDA error "
-                               f"{err}")
-        count_launch(flat_fields_cuda)
+        launch("ps_flat_fields", dev, buf.data_ptr(), len(draws),
+               frame.data_ptr(), keys.ctypes.data, n_words.ctypes.data,
+               words.ctypes.data, items.ctypes.data, kinds.ctypes.data,
+               affine.ctypes.data)
     return [part.view(d.out_shape)
             for part, d in zip(torch.split(buf, sizes), draws)]
-
-
-flat_fields_cuda.launches = 0
 
 
 def flat_fields(draws, frame, device) -> list:
     """The draws at ``frame`` on ``device``, one tensor a draw: the kernel
     for a CUDA device, the plain version for the CPU."""
     dev = torch.device(device)
-    if dev.type == "cuda":
-        return flat_fields_cuda(draws, frame, dev)
-    if dev.type == "cpu":
-        return flat_fields_plain(draws, frame, dev)
-    raise ValueError(f"no threefry kernel for device {dev}")
+    return by_device(dev, "threefry kernel", flat_fields_cuda,
+                     flat_fields_plain)(draws, frame, dev)
 
 
 # --- a fresh n-body state -------------------------------------------------------
@@ -282,11 +256,8 @@ class Fill:
 
 def nbody_fill_cuda(fill: Fill, device) -> ParticleState:
     """Launch ``ps_nbody_fill`` on the current stream into nine tensors
-    from ``torch.empty``; counts its launches in
-    ``nbody_fill_cuda.launches``."""
+    from ``torch.empty``."""
     dev = _device(device)
-    if dev.type != "cuda":
-        raise ValueError(f"nbody_fill_cuda needs a CUDA device, got {dev}")
     slots, n = fill.slots, fill.n
     if not 0 <= n <= slots:
         raise ValueError(f"{n} particles do not fit {slots} slots")
@@ -301,14 +272,8 @@ def nbody_fill_cuda(fill: Fill, device) -> ParticleState:
         parent=empty(slots, dtype=torch.bool),
         tag=empty(slots, dtype=torch.int64))
     if slots:
-        err = launch("ps_nbody_fill", dev,
-                     *(getattr(st, f).data_ptr() for f in FIELDS),
-                     n, slots, *fill.key, *fill.words, fill.half_extent,
-                     fill.weight, *fill.age, *fill.life)
-        if err:
-            raise RuntimeError(f"fill kernel launch failed: CUDA error {err}")
-        count_launch(nbody_fill_cuda)
+        launch("ps_nbody_fill", dev,
+               *(getattr(st, f).data_ptr() for f in FIELDS),
+               n, slots, *fill.key, *fill.words, fill.half_extent,
+               fill.weight, *fill.age, *fill.life)
     return st
-
-
-nbody_fill_cuda.launches = 0

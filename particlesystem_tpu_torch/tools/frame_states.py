@@ -42,7 +42,7 @@ from ..core.state import FIELDS, ParticleState, zero_state
 from ..models import nbody
 from ..ops import frame_kernels as fk
 from ..ops import neighbor_blocks as nbk
-from ..utils.frame_graph import recording
+from ..utils.cuda_build import recording
 
 #: the tags at the edges of the collision key and the child-tag mix
 EDGE_TAGS = (0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 0x80000001, 0)

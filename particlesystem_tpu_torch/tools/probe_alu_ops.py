@@ -38,13 +38,14 @@ Usage: python -m particlesystem_tpu_torch.tools.probe_alu_ops
 
 from __future__ import annotations
 
+import functools
 import re
 import sys
 
 import numpy as np
 import torch
 
-from ..utils.cuda_build import launch
+from ..utils.cuda_build import by_device, launch
 
 B, CH = 512, 1024
 REPS = 64           # repeats of the tile per launch (the TPU grid's 64 steps)
@@ -100,13 +101,9 @@ def probe_layers_plain(variant: str, k: int, x: torch.Tensor) -> torch.Tensor:
 def probe_layers_cuda(variant: str, k: int, x: torch.Tensor,
                       reps: int = REPS) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream: ``reps`` repeats of the
-    tile ``x`` spread over the grid; returns repeat 0's result.  Counts its
-    launches in ``probe_layers_cuda.launches``."""
+    tile ``x`` spread over the grid; returns repeat 0's result."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
-    if x.device.type != "cuda":
-        raise ValueError(f"probe_layers_cuda needs a CUDA tensor, got "
-                         f"{x.device}")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("x must be a contiguous float32 tensor")
     if x.numel() == 0 or x.numel() % 8 or x.data_ptr() % 16:
@@ -115,26 +112,18 @@ def probe_layers_cuda(variant: str, k: int, x: torch.Tensor,
     if reps < 1 or k < 0:
         raise ValueError(f"reps={reps} and k={k} must be >= 1 and >= 0")
     out = torch.empty_like(x)
-    err = launch("ps_probe_alu_ops", x.device, x.data_ptr(), out.data_ptr(),
-                 x.numel(), reps, VARIANTS.index(variant), k)
-    if err:
-        raise RuntimeError(f"probe kernel launch failed: CUDA error {err}")
-    probe_layers_cuda.launches += 1
+    launch("ps_probe_alu_ops", x.device, x.data_ptr(), out.data_ptr(),
+           x.numel(), reps, VARIANTS.index(variant), k)
     return out
-
-
-probe_layers_cuda.launches = 0
 
 
 def probe_layers(variant: str, k: int, x: torch.Tensor,
                  reps: int = REPS) -> torch.Tensor:
     """``k`` layers of ``variant`` on ``x``: the kernel for a CUDA tensor,
     the plain version for a CPU one."""
-    if x.device.type == "cuda":
-        return probe_layers_cuda(variant, k, x, reps)
-    if x.device.type == "cpu":
-        return probe_layers_plain(variant, k, x)
-    raise ValueError(f"no probe kernel for device {x.device}")
+    return by_device(x, "probe kernel",
+                     functools.partial(probe_layers_cuda, reps=reps),
+                     probe_layers_plain)(variant, k, x)
 
 
 def tile(device) -> torch.Tensor:

@@ -28,7 +28,8 @@ import sys
 
 import torch
 
-from ..utils.cuda_build import launch
+from ..utils import cuda_build
+from ..utils.cuda_build import by_device, launch
 
 ROWS = 16
 CAP = 1024   # the constant padded width
@@ -42,35 +43,22 @@ def probe_affine_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def probe_affine_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream.  Counts its launches
-    in ``probe_affine_cuda.launches``."""
-    if x.device.type != "cuda":
-        raise ValueError(f"probe_affine_cuda needs a CUDA tensor, got "
-                         f"{x.device}")
+    """Launch the CUDA kernel on the current stream."""
     if (x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != ROWS
             or not x.is_contiguous()):
         raise ValueError(f"x must be a contiguous float32 ({ROWS}, width) "
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
     out = torch.empty_like(x)
-    err = launch("ps_probe_affine", x.device, x.data_ptr(), out.data_ptr(),
-                 x.numel())
-    if err:
-        raise RuntimeError(f"affine kernel launch failed: CUDA error {err}")
-    probe_affine_cuda.launches += 1
+    launch("ps_probe_affine", x.device, x.data_ptr(), out.data_ptr(),
+           x.numel())
     return out
-
-
-probe_affine_cuda.launches = 0
 
 
 def probe_affine(x: torch.Tensor) -> torch.Tensor:
     """``x * 2 + 1``: the kernel for a CUDA tensor, the plain version for a
     CPU one."""
-    if x.device.type == "cuda":
-        return probe_affine_cuda(x)
-    if x.device.type == "cpu":
-        return probe_affine_plain(x)
-    raise ValueError(f"no affine kernel for device {x.device}")
+    return by_device(x, "affine kernel", probe_affine_cuda,
+                     probe_affine_plain)(x)
 
 
 def step_bucket(x: torch.Tensor, frame: int) -> torch.Tensor:
@@ -113,14 +101,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("probe_two_shapes: torch sees no CUDA device", file=sys.stderr)
         return 1
-    before = probe_affine_cuda.launches
+    before = cuda_build.launches().get("ps_probe_affine", 0)
     checked = run(torch.device("cuda", 0))
     torch.cuda.synchronize()
     print(f"SAFE on {torch.cuda.get_device_name(0)}: one built kernel at the "
           f"fixed (16, {CAP}) shape from callers of widths {WIDTHS} and at "
           f"their own shapes, interleaved for {FRAMES} frames, "
-          f"{probe_affine_cuda.launches - before} launches, {checked} "
-          f"results correct", flush=True)
+          f"{cuda_build.launches()['ps_probe_affine'] - before} launches, "
+          f"{checked} results correct", flush=True)
     return 0
 
 

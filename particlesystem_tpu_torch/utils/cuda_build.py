@@ -9,14 +9,22 @@ package, named by a hash of the flags and of every file under ``csrc/``
 change builds it and later calls (and processes) reuse it.  Nothing is
 built or loaded when the module is imported.
 
-Every kernel wrapper launches through :func:`launch`, which keeps the host's
-path to the kernel short: the entry point is looked up once, the stream is
-taken as a raw handle, and no device context is entered when the tensors
-already lie on the current device.
+The kernels' one seam: every wrapper launches through :func:`launch`,
+which keeps the host's path to the kernel short (the entry point is looked
+up once, the stream is taken as a raw handle, and no device context is
+entered when the tensors already lie on the current device), raises on a
+failed launch, and counts the launch under the entry point's name
+(:func:`launches`).  A launch made while a CUDA graph is captured is not a
+launch, only a node of the graph: it goes into the capture's
+:class:`Record` (:func:`recording`), and each replay of the graph runs it
+again, so the counts still count the kernels' runs on the card.  Each
+public op picks its kernel or its plain version by device through
+:func:`by_device`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -25,7 +33,9 @@ import re
 import shutil
 import subprocess
 import time
+import weakref
 from pathlib import Path
+from typing import Dict, List
 
 import torch
 
@@ -190,14 +200,98 @@ def current_stream_handle(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def launch(name: str, device: torch.device, *args) -> int:
-    """Call the C entry point ``name`` with ``args`` and, as its last
-    argument, the current stream of ``device`` (a CUDA device with an
-    index, as every CUDA tensor's is).  Returns the launch's CUDA error
-    code, 0 on success: the caller raises on anything else."""
+def by_device(where, op: str, cuda_fn, plain_fn):
+    """``cuda_fn`` where ``where`` (a tensor or a device) lies on a CUDA
+    device, ``plain_fn`` on the CPU; any other device raises, naming
+    ``op``."""
+    dev = (where.device if isinstance(where, torch.Tensor)
+           else torch.device(where))
+    if dev.type == "cuda":
+        return cuda_fn
+    if dev.type == "cpu":
+        return plain_fn
+    raise ValueError(f"no {op} for device {dev}")
+
+
+#: launches made outside a capture, {entry point: launches}
+_counts: Dict[str, int] = {}
+#: the records of the captures under way, the innermost last
+_recording: List["Record"] = []
+#: the records whose graphs may still be replayed
+_captured: "weakref.WeakSet[Record]" = weakref.WeakSet()
+
+
+def _fold(counts: Dict[str, int], rec: "Record") -> None:
+    for name, n in rec.counts.items():
+        counts[name] = counts.get(name, 0) + n * rec.replays
+
+
+class Record:
+    """What a capture recorded: ``counts``, the launches made inside it
+    {entry point: launches}, and ``replays``, the replays of its graph,
+    which its owner counts: each runs them again.  When the record is freed
+    with its graph, what its replays ran joins the counts."""
+
+    __slots__ = ("counts", "replays", "__weakref__")
+
+    def __init__(self):
+        self.counts: Dict[str, int] = {}
+        self.replays = 0
+
+    # bound here: the module's globals may be gone when the last record is
+    # freed at exit
+    def __del__(self, fold=_fold, counts=_counts):
+        fold(counts, self)
+
+
+@contextlib.contextmanager
+def recording():
+    """The launches made inside go into a :class:`Record`, yielded, instead
+    of the counts: what a capture records."""
+    rec = Record()
+    _captured.add(rec)
+    _recording.append(rec)
+    try:
+        yield rec
+    finally:
+        _recording.pop()
+
+
+def launches() -> Dict[str, int]:
+    """{entry point: launches} of the process: the kernels' runs on the
+    card, a replay counting those its graph recorded."""
+    out = dict(_counts)
+    for rec in list(_captured):
+        _fold(out, rec)
+    return out
+
+
+def _call(name: str, device: torch.device, args) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors only: it needs a CUDA "
+                         f"device, got {device}")
     fn = _entry(name)
     index = device.index
     if index != torch.cuda.current_device():
         with torch.cuda.device(index):
-            return fn(*args, current_stream_handle(index))
-    return fn(*args, current_stream_handle(index))
+            err = fn(*args, current_stream_handle(index))
+    else:
+        err = fn(*args, current_stream_handle(index))
+    if err:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and, as its last
+    argument, the current stream of ``device`` (a CUDA device with an
+    index, as every CUDA tensor's is); raises on a nonzero CUDA error, and
+    counts the launch under ``name`` (inside a capture, in its record)."""
+    _call(name, device, args)
+    counts = _recording[-1].counts if _recording else _counts
+    counts[name] = counts.get(name, 0) + 1
+
+
+def read(name: str, device: torch.device, *args) -> None:
+    """Call an entry point that launches no kernel (one that reads the
+    card's counters back) as :func:`launch` does, uncounted."""
+    _call(name, device, args)

@@ -17,11 +17,10 @@ Nothing falls back: an operation that cannot be captured (one that reads
 a value back to the host, ``.item()``, ``.tolist()``, a copy from pageable
 host memory) makes the capture raise.
 
-Launch counts (:func:`count_launch`): each kernel wrapper counts the
-launches it makes in its ``launches`` attribute.  A launch made while a
-frame is captured is not a launch, only a node of the graph: it is noted
-in the capture's record, and each replay adds the record to the wrappers'
-counts, so ``launches`` still counts the kernel's runs on the card.
+Launch counts (``utils/cuda_build.launches``): a capture records the
+launches made inside it (``cuda_build.recording``), and a replay adds one
+to the record's replays, so the counts take in the kernels each replay
+ran without a walk over them in the loop.
 
 Graph memory: every capture on a device goes into one memory pool,
 shared by all the loops of the process and held for its lifetime
@@ -39,14 +38,12 @@ cannot take such memory back.  :data:`counters` counts the pools made
 
 from __future__ import annotations
 
-import contextlib
-from typing import Callable, Dict, Hashable, List, Tuple
+from typing import Callable, Dict, Hashable, Tuple
 
 import torch
 
+from . import cuda_build
 from .timers import span
-
-_records: List[Dict[object, int]] = []
 
 #: the shared pools: ``pools_created`` (one a device the process captured
 #: on) and ``shared_captures`` (captures into them)
@@ -88,33 +85,10 @@ def shared_pool(device: torch.device):
     return _shared[index][:2]
 
 
-def count_launch(wrapper) -> None:
-    """One launch by ``wrapper``: counted in ``wrapper.launches``, or,
-    inside a capture, noted in the capture's record (the graph's replays
-    count it)."""
-    if _records:
-        rec = _records[-1]
-        rec[wrapper] = rec.get(wrapper, 0) + 1
-    else:
-        wrapper.launches += 1
-
-
-@contextlib.contextmanager
-def recording():
-    """Collect the launches made inside into a dict {wrapper: launches},
-    yielded, instead of the wrappers' counts: what a capture records."""
-    rec: Dict[object, int] = {}
-    _records.append(rec)
-    try:
-        yield rec
-    finally:
-        _records.pop()
-
-
 class _Graph:
-    def __init__(self, graph, recorded: Dict[object, int]):
+    def __init__(self, graph, record: cuda_build.Record):
         self.graph = graph
-        self.recorded = recorded
+        self.record = record
 
 
 class FrameGraphs:
@@ -159,7 +133,7 @@ class FrameGraphs:
                 with span("graphs.capture"):
                     self._graphs[key] = self._capture(fn)
             else:  # the CPU keeps the key, with no graph
-                self._graphs[key] = _Graph(None, {})
+                self._graphs[key] = _Graph(None, cuda_build.Record())
             return
         if g.graph is None:
             fn()
@@ -167,8 +141,7 @@ class FrameGraphs:
             return
         g.graph.replay()
         self.replays += 1
-        for wrapper, n in g.recorded.items():
-            wrapper.launches += n
+        g.record.replays += 1
 
     def _capture(self, fn) -> _Graph:
         """``fn`` captured on the device's capture stream (a capture cannot
@@ -180,7 +153,7 @@ class FrameGraphs:
         pool, stream = shared_pool(self.device)
         main = torch.cuda.current_stream(self.device)
         stream.wait_stream(main)
-        with recording() as rec, torch.cuda.stream(stream):
+        with cuda_build.recording() as rec, torch.cuda.stream(stream):
             graph.capture_begin(pool, capture_error_mode="thread_local")
             try:
                 fn()
@@ -191,11 +164,11 @@ class FrameGraphs:
         counters["shared_captures"] += 1
         return _Graph(graph, rec)
 
-    def recorded(self, key: Hashable) -> Dict[object, int]:
-        """{wrapper: launches} that one replay of ``key``'s graph makes
+    def recorded(self, key: Hashable) -> Dict[str, int]:
+        """{entry point: launches} that one replay of ``key``'s graph makes
         (empty where no graph was captured, as on the CPU)."""
         g = self._graphs.get(key)
-        return {} if g is None else dict(g.recorded)
+        return {} if g is None else dict(g.record.counts)
 
     @property
     def keys(self) -> list:

@@ -43,6 +43,7 @@ from particlesystem_tpu_torch.ops import fused_step as tfs
 from particlesystem_tpu_torch.ops import physics_kernel as tpk
 from particlesystem_tpu_torch.runtime.engine import (
     PackedEngine as TEngine, engine_state_from_numpy, engine_state_to_numpy)
+from particlesystem_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(1)
 
@@ -205,7 +206,7 @@ def test_physics_step_matches_jax_xla_and_pallas(scene):
     # the scene really exercised contacts and frozen rows
     y0, y1 = fields[1], np_of(got[1])
     assert (y0 < 0).any() and ((y1 != y0) & (fields[7] == 0)).sum() == 0
-    assert tpk.physics_step_cuda.launches == 0
+    assert cuda_build.launches().get("ps_physics_step", 0) == 0
 
 
 def test_physics_step_slim_matches_jax():
@@ -384,7 +385,7 @@ def test_engine_rejects_what_jax_rejects():
         tpk.physics_step_cuda(fields, cfg)
     with pytest.raises(ValueError, match="one length"):
         tpk.physics_step(fields[:7] + (torch.zeros(512),), cfg)
-    assert tpk.physics_step_cuda.launches == 0
+    assert cuda_build.launches().get("ps_physics_step", 0) == 0
 
 
 # --- 6. state carried across ------------------------------------------------

@@ -235,15 +235,15 @@ def test_cpu_takes_the_plain_versions_and_other_devices_raise(monkeypatch):
         raise AssertionError("the CPU path loaded the CUDA library")
 
     monkeypatch.setattr(cuda_build, "load_library", refuse)
-    monkeypatch.setattr(ek, "launch", refuse)
-    wrappers = (ek.spawn_window_cuda, ek.ring_write_cuda, ek.frame_tail_cuda)
-    for w in wrappers:
-        w.launches = 0
+    monkeypatch.setattr(cuda_build, "_entry", refuse)
+    entries = ("ps_emitter_spawn", "ps_emitter_ring", "ps_emitter_tail")
+    before = cuda_build.launches()
     cfg = three_emitter_scene()
     for alloc in ("select", "ring"):
         eng = PackedEngine(cfg, alloc=alloc, device="cpu")
         eng.step_many(eng.init(), 3)
-    assert all(w.launches == 0 for w in wrappers)
+    after = cuda_build.launches()
+    assert all(after.get(k, 0) == before.get(k, 0) for k in entries)
 
     table = tem.SpawnTable(cfg, "cpu")
     meta = torch.device("meta")

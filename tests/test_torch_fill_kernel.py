@@ -25,6 +25,7 @@ from particlesystem_tpu_torch.core import rng
 from particlesystem_tpu_torch.core.state import FIELDS
 from particlesystem_tpu_torch.models import nbody
 from particlesystem_tpu_torch.ops import rng_kernel as rk
+from particlesystem_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(1)
 
@@ -120,12 +121,12 @@ def test_kernel_arithmetic_from_its_scalars_is_the_cpu_fill(n):
 
 
 def test_cpu_fill_launches_no_kernel():
-    rk.nbody_fill_cuda.launches = 0
-    rk.flat_fields_cuda.launches = 0
+    before = cuda_build.launches()
     nbody.init_fill(small_cfg(), "cpu")
     nbody.init_fill(small_cfg(), torch.device("cpu"), 3)
-    assert rk.nbody_fill_cuda.launches == 0
-    assert rk.flat_fields_cuda.launches == 0
+    after = cuda_build.launches()
+    for name in ("ps_nbody_fill", "ps_flat_fields"):
+        assert after.get(name, 0) == before.get(name, 0), name
 
 
 def test_fill_refuses_what_it_does_not_take():
@@ -147,9 +148,9 @@ def test_cuda_fill_is_the_cpu_fill_in_one_launch():
         for cfg in (TNBodyConfig(seed=seed), small_cfg(seed=seed)):
             for n in sorted({min(n, cfg.slots) for n in
                              (0, 1, 4097, cfg.n_fill, cfg.slots)}):
-                before = rk.nbody_fill_cuda.launches
+                before = cuda_build.launches().get("ps_nbody_fill", 0)
                 card = nbody.init_fill(cfg, "cuda", n)
-                assert rk.nbody_fill_cuda.launches == before + 1
+                assert cuda_build.launches()["ps_nbody_fill"] == before + 1
                 host = nbody.init_fill(cfg, "cpu", n)
                 for f in FIELDS:
                     a, b = getattr(card, f).cpu(), getattr(host, f)

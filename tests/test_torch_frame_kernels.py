@@ -48,6 +48,7 @@ from particlesystem_tpu_torch.models import nbody as tnbody
 from particlesystem_tpu_torch.ops import frame_kernels as fk
 from particlesystem_tpu_torch.ops import neighbor_blocks as tnbk
 from particlesystem_tpu_torch.tools import frame_states as fs
+from particlesystem_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(1)
 
@@ -394,14 +395,13 @@ def test_step_and_step_into_agree_through_the_plain_frame():
 
 
 def test_cpu_takes_the_plain_version_and_wrappers_refuse():
-    wrappers = (fk.nbody_cells_cuda, fk.cell_starts_cuda,
-                fk.block_prepare_cuda, fk.nbody_lifecycle_cuda,
-                fk.nbody_spawn_cuda)
-    for w in wrappers:
-        w.launches = 0
+    entries = ("ps_nbody_cells", "ps_cell_starts", "ps_block_prepare",
+               "ps_nbody_lifecycle", "ps_nbody_spawn")
+    before = cuda_build.launches()
     case = STATES["tags"]
     tnbody.step(case.state, 1, case.cfg)
-    assert all(w.launches == 0 for w in wrappers)
+    after = cuda_build.launches()
+    assert all(after.get(k, 0) == before.get(k, 0) for k in entries)
     st = case.state
     a_args = (st.pos, st.alive, st.age, st.w, st.tag)
     with pytest.raises(ValueError, match="CUDA"):

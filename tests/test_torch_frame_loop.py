@@ -51,7 +51,7 @@ from particlesystem_tpu_torch.ops import fused_step as tfs
 from particlesystem_tpu_torch.ops import rng_kernel as rk
 from particlesystem_tpu_torch.runtime.engine import (PackedEngine as TEngine,
                                                      engine_state_to_numpy)
-from particlesystem_tpu_torch.utils import frame_graph
+from particlesystem_tpu_torch.utils import cuda_build, frame_graph
 
 torch.set_num_threads(1)
 
@@ -341,17 +341,24 @@ def test_frame_graphs_keep_and_free_keys_on_the_cpu():
     assert graphs.keys == ["b"]
 
 
-def test_launches_in_a_capture_are_recorded_not_counted():
-    def wrapper():
-        frame_graph.count_launch(wrapper)
-
-    wrapper.launches = 0
-    wrapper()
-    with frame_graph.recording() as rec:
-        wrapper()
-        wrapper()
-    wrapper()
-    assert wrapper.launches == 2 and rec == {wrapper: 2}
+def test_launches_in_a_capture_are_recorded_not_counted(monkeypatch):
+    """``cuda_build.launch`` counts by entry point; inside a capture it
+    records instead, and each replay counts the record again, also after
+    the record is freed with its graph (a fake entry point: no card)."""
+    monkeypatch.setattr(cuda_build, "_call", lambda name, device, args: None)
+    name, dev = "ps_fake_recorded", torch.device("cuda", 0)
+    launched = lambda: cuda_build.launches().get(name, 0)
+    before = launched()
+    cuda_build.launch(name, dev)
+    with cuda_build.recording() as rec:
+        cuda_build.launch(name, dev)
+        cuda_build.launch(name, dev)
+    cuda_build.launch(name, dev)
+    assert launched() == before + 2 and rec.counts == {name: 2}
+    rec.replays += 3
+    assert launched() == before + 8
+    del rec
+    assert launched() == before + 8
 
 
 @pytest.mark.cuda

@@ -24,6 +24,7 @@ from particlesystem_tpu_torch.__main__ import main as cli_main
 from particlesystem_tpu_torch.api import NBodySimulation
 from particlesystem_tpu_torch.models import nbody as tnbody
 from particlesystem_tpu_torch.ops.grid import coords_to_cell, wrap_positions
+from particlesystem_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(1)
 
@@ -76,6 +77,44 @@ def test_sources_import_no_jax():
                     f"{path}: imports {name}"
 
 
+def test_ops_leave_the_frame_loop_out():
+    """The kernels' wrappers launch and count through ``utils/cuda_build``
+    alone: no module under ``ops/`` knows of the frame loop above it."""
+    for path in (PKG / "ops").rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [f"{node.module or ''}.{a.name}" for a in node.names]
+            for name in names:
+                assert "frame_graph" not in name, f"{path}: imports {name}"
+
+
+def test_launch_raises_naming_the_entry_point(monkeypatch):
+    """A nonzero CUDA error code raises, naming the entry point and the
+    code, and counts no launch (a fake entry point: no card needed)."""
+    monkeypatch.setattr(cuda_build, "_entry", lambda name: lambda *a: 700)
+    monkeypatch.setattr(cuda_build, "current_stream_handle", lambda i: 0)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    before = cuda_build.launches().get("ps_fake_entry", 0)
+    with pytest.raises(RuntimeError, match="ps_fake_entry.*CUDA error 700"):
+        cuda_build.launch("ps_fake_entry", torch.device("cuda", 0), 1, 2)
+    assert cuda_build.launches().get("ps_fake_entry", 0) == before
+    with pytest.raises(ValueError, match="ps_fake_entry.*CUDA device"):
+        cuda_build.launch("ps_fake_entry", torch.device("cpu"))
+
+
+def test_dispatch_names_the_op_on_another_device():
+    cuda, plain = object(), object()
+    assert cuda_build.by_device(torch.zeros(1), "fake kernel", cuda,
+                                plain) is plain
+    assert cuda_build.by_device("cuda:1", "fake kernel", cuda, plain) is cuda
+    with pytest.raises(ValueError, match="no fake kernel for device meta"):
+        cuda_build.by_device(torch.zeros(1, device="meta"), "fake kernel",
+                             cuda, plain)
+
+
 CONFIG_CASES = [
     lambda m: m.NBodyConfig(),
     lambda m: m.NBodyConfig(n_fill=20_000, capacity=32768,
@@ -116,9 +155,9 @@ def test_kernel_call_on_cpu_counts_no_launch():
     cell = coords_to_cell(wrap_positions(st.pos, cfg.grid)[1], cfg.grid)
     snap, chunks, *_ = tnbk.prepare(st.pos, st.age, st.w, cell, st.alive,
                                     cfg, st.tag)
-    before = tnbk.cluster_pair_cuda.launches
+    before = cuda_build.launches().get("ps_cluster_pair", 0)
     acc, gmax = tnbk.kernel_call(cfg, snap, chunks)
-    assert tnbk.cluster_pair_cuda.launches == before == 0
+    assert cuda_build.launches().get("ps_cluster_pair", 0) == before == 0
     assert acc.shape == (3, 2048) and gmax.dtype == torch.int32
     assert torch.isfinite(acc).all()
     with pytest.raises(ValueError, match="CUDA tensors"):

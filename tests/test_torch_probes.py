@@ -34,6 +34,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from particlesystem_tpu_torch.tools import probe_alu_ops, probe_two_shapes
+from particlesystem_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(1)
 
@@ -111,9 +112,9 @@ def test_probe_layers_depend_on_k_and_reject_misuse():
     assert torch.equal(probe_alu_ops.probe_layers_plain("fma", 0, x), x * 0.5)
     assert not torch.equal(probe_alu_ops.probe_layers_plain("fma", 1, x),
                            probe_alu_ops.probe_layers_plain("fma", 2, x))
-    before = probe_alu_ops.probe_layers_cuda.launches
+    before = cuda_build.launches().get("ps_probe_alu_ops", 0)
     probe_alu_ops.probe_layers("chain16", 2, x)
-    assert probe_alu_ops.probe_layers_cuda.launches == before
+    assert cuda_build.launches().get("ps_probe_alu_ops", 0) == before
     with pytest.raises(ValueError, match="unknown variant"):
         probe_alu_ops.probe_layers_plain("div", 1, x)
     with pytest.raises(ValueError, match="unknown variant"):
@@ -163,12 +164,12 @@ def test_step_buckets_match_the_jax_tool(width):
 
 
 def test_two_shapes_run_checks_every_result(capsys, monkeypatch):
-    before = probe_two_shapes.probe_affine_cuda.launches
+    before = cuda_build.launches().get("ps_probe_affine", 0)
     assert probe_two_shapes.run("cpu") == 2 * probe_two_shapes.FRAMES
     out = capsys.readouterr().out
     assert "bucket A (512) launched twice: ok" in out
     assert "bucket B (768) launched twice: ok" in out
-    assert probe_two_shapes.probe_affine_cuda.launches == before
+    assert cuda_build.launches().get("ps_probe_affine", 0) == before
     # a wrong kernel result is caught
     monkeypatch.setattr(probe_two_shapes, "probe_affine",
                         lambda x: x * 2.0 + 1.5)
@@ -181,7 +182,7 @@ def test_affine_wrapper_rejects_misuse():
         probe_two_shapes.probe_affine_cuda(torch.zeros((16, 512)))
     with pytest.raises(ValueError, match="no affine kernel"):
         probe_two_shapes.probe_affine(torch.zeros((16, 512), device="meta"))
-    assert probe_two_shapes.probe_affine_cuda.launches == 0 or \
+    assert cuda_build.launches().get("ps_probe_affine", 0) == 0 or \
         torch.cuda.is_available()
 
 
@@ -205,11 +206,11 @@ def _need_card():
 def test_cuda_probe_kernel_matches_plain(variant):
     _need_card()
     x = probe_alu_ops.tile("cuda")
-    before = probe_alu_ops.probe_layers_cuda.launches
+    before = cuda_build.launches().get("ps_probe_alu_ops", 0)
     got = probe_alu_ops.probe_layers(variant, 8, x)
     want = probe_alu_ops.probe_layers_plain(variant, 8, x)
     torch.cuda.synchronize()
-    assert probe_alu_ops.probe_layers_cuda.launches == before + 1
+    assert cuda_build.launches()["ps_probe_alu_ops"] == before + 1
     if variant == "rsqrt":   # MUFU.RSQ: 2 ulp
         torch.testing.assert_close(got, want, rtol=2e-6, atol=0)
     else:

@@ -19,6 +19,7 @@ from particlesystem_tpu.core import rng as jrng
 from particlesystem_tpu.models import nbody as jnbody
 from particlesystem_tpu_torch.core import rng as trng
 from particlesystem_tpu_torch.ops import rng_kernel as rk
+from particlesystem_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(1)
 
@@ -75,8 +76,7 @@ def test_affine_draw_matches_jax():
 
 
 def test_cpu_takes_the_plain_version():
-    rk.nbody_fields_cuda.launches = 0
-    rk.flat_fields_cuda.launches = 0
+    before = cuda_build.launches()
     tags = torch.from_numpy(TAGS[:64].astype(np.int64))
     got = rk.nbody_fields(1, 2, tags, 0.5, 4.0)
     want = rk.nbody_fields_plain(1, 2, tags, 0.5, 4.0)
@@ -88,8 +88,9 @@ def test_cpu_takes_the_plain_version():
     for a, b in zip(rk.flat_fields(draws, 9, "cpu"),
                     rk.flat_fields_plain(draws, 9, "cpu")):
         assert torch.equal(a, b)
-    assert rk.nbody_fields_cuda.launches == 0
-    assert rk.flat_fields_cuda.launches == 0
+    after = cuda_build.launches()
+    for name in ("ps_nbody_frame_fields", "ps_flat_fields"):
+        assert after.get(name, 0) == before.get(name, 0), name
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
